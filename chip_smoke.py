@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--horizon TICKS]
+    python3 chip_smoke.py [--horizon TICKS] [--seed SEED]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   gpu               the card's name and power limit (nvidia-smi)
-  build             nvcc build of every kernel of the path (segment_sums.cu)
+  build             nvcc build of every kernel (segment_sums.cu and
+                    flash_attention.cu, one nvcc each, started together)
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -19,6 +20,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     1.2 ids, threshold 32, max_hot 256) against the 2PL
                     oracle (evaluated in f64); kernel launch counts are read
                     right after it
+  model             the serving path of qwen2-0.5b at its full published
+                    width (24 layers, d_model 896, 14/2 heads, vocab
+                    152,064; weights from --seed, bf16 activations): a
+                    prefill through make_prefill_step(use_kernel=True) at
+                    prefill_32k's S = 32,768 (batch cut from 32 to 1 to fit
+                    the time limit), 32 decode steps through make_serve_step,
+                    then serve_demo at full width (12 requests, 4 slots);
+                    launch counts are zeroed before it and read right after
+                    (the flash kernel: once per layer of the prefill)
   engine_invariants drain invariants per protocol (T=64, R=4096) and the
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000)
@@ -26,6 +36,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     every SimState leaf must be equal
   kernels           segment_sums against its plain version at the reference
                     tests' shapes and at the main path's shape, with times
+  flash             the flash kernel against its plain version at the
+                    reference tests' shapes (f32 at 2e-6, bf16 at 2e-2),
+                    qwen2's heads at S = 2048 and Sq != Sk; the kernel path
+                    against the plain path at full width (B=2, S=2048: bf16
+                    last-token logits within 2e-2 of max |logit|; f32
+                    prefill-then-decode against the full forward within
+                    2e-4); times at the main path's shape
 
 The line before the last is the ``kernels`` summary and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -35,10 +52,12 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -47,20 +66,29 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo", "brook2pl")
-# device-memory bandwidth (bytes/s) and non-tensor-core f32 peak (FLOP/s) by
-# card, from NVIDIA's data sheets; the SXM part is the default
+# device-memory bandwidth (bytes/s), non-tensor-core f32 peak and dense bf16
+# tensor-core peak (FLOP/s) by card, from NVIDIA's data sheets (dense: half
+# the sparse figure); the SXM part is the default
 CARDS = {
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H100": (3.35e12, 67e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H100": (3.35e12, 67e12, 989e12),
 }
+ARCH = "qwen2-0.5b"
+DECODE_STEPS = 32
+# flash kernel against its plain version on the same inputs: both compute in
+# f32 (FMA products, no TF32), so they differ only in the order of sums
+SAME_INPUTS_TOL = 1e-5
+# the bf16 kernel path may lie at most this factor farther from the f32 path
+# than the bf16 plain path does (two draws of the same bf16 rounding)
+BF16_PATH_MARGIN = 1.25
 
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def card_rates(name: str) -> tuple[float, float]:
+def card_rates(name: str) -> tuple[float, float, float]:
     for key, rates in CARDS.items():
         if key in name:
             return rates
@@ -93,11 +121,13 @@ def phase_gpu() -> str:
     return line
 
 
-def phase_build(kernel_mod) -> None:
+def phase_build(kernel_mods) -> None:
+    """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    lib = kernel_mod.build(verbose=True)
+    with ThreadPoolExecutor(len(kernel_mods)) as pool:
+        libs = list(pool.map(lambda m: m.build(verbose=True), kernel_mods))
     emit("build", seconds=time.perf_counter() - t0,
-         library=str(lib.relative_to(ROOT)))
+         libraries=[str(lib.relative_to(ROOT)) for lib in libs])
 
 
 def check_accounting(s, T: int) -> None:
@@ -268,7 +298,7 @@ def phase_kernels(inputs, launches: int, rates) -> dict:
     lib_ids = torch.where(gidx >= 0, gidx, G).long()    # -1 -> spill row
     library_ms = cuda_ms(lambda: torch.zeros(
         (G + 1, D), device="cuda").index_add_(0, lib_ids, upd))
-    bw, f32_peak = rates
+    bw, f32_peak, _ = rates
     nbytes = valid * D * upd.element_size() + 4 * N + 4 * G * D
     t_bytes, t_ops = nbytes / bw * 1e3, valid * D / f32_peak * 1e3
     row = {"name": "segment_sums", "route": "cuda",
@@ -286,12 +316,205 @@ def phase_kernels(inputs, launches: int, rates) -> dict:
     return row
 
 
+def phase_model(seed: int) -> tuple:
+    """The serving path at full width: prefill through the flash kernel at
+    prefill_32k's length, decode steps, serve_demo. Returns (cfg, params)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import count_params, init_params, lm_spec
+    cfg = get_config(ARCH)
+    shape = SHAPES["prefill_32k"]
+    B, S = 1, shape.seq_len
+    emit("model", check="cut", shape=shape.name, seq_len=S,
+         global_batch=shape.global_batch, batch=B,
+         note="batch cut from 32 to 1 to fit the time limit")
+    t0 = time.perf_counter()
+    params = init_params(lm_spec(cfg), seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step = make_prefill_step(cfg, use_kernel=True, max_len=S + DECODE_STEPS)
+    t0 = time.perf_counter()
+    logits, caches = step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    assert logits.shape == (B, 1, cfg.padded_vocab), logits.shape
+    assert bool(torch.isfinite(logits.float()).all()), "prefill logits"
+    layer_caches = caches["g0"]["u0"]
+    assert len(layer_caches) == cfg.n_layers
+    assert layer_caches[0].k.shape == (B, S + DECODE_STEPS, cfg.n_kv_heads,
+                                       cfg.hd), layer_caches[0].k.shape
+    serve = make_serve_step(cfg)
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    toks = [nxt]
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        nxt, caches = serve(params, {"tokens": nxt[:, None], "caches": caches,
+                                     "pos": S + i})
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    toks = torch.stack(toks, 1)
+    assert bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    emit("model", check="prefill_decode", arch=ARCH,
+         params=count_params(lm_spec(cfg)), act_dtype=cfg.act_dtype,
+         batch=B, seq_len=S, init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=B * S / prefill_s, decode_steps=DECODE_STEPS,
+         decode_ms_per_step=1e3 * decode_s / DECODE_STEPS,
+         peak_memory_gib=peak_gb, tokens=toks[0, :8].tolist())
+    del caches, logits
+    t0 = time.perf_counter()
+    srv = serve_demo(ARCH, n_requests=12, batch_slots=4, smoke=False,
+                     seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = sum(4 + rid % 5 for rid in range(12))
+    assert srv.members_served == want and not srv.queue \
+        and all(r is None for r in srv.active), (srv.members_served, want)
+    emit("model", check="serve_demo", requests=12, slots=4,
+         steps_fired=srv.steps_fired, members_served=srv.members_served,
+         wall_s=wall, note="wall includes init_params at full width")
+    return cfg, params
+
+
+def _rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def phase_flash(cfg, params, seed: int, launches: int, rates) -> dict:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     attention_ref)
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.launch.steps import make_prefill_step
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = [(2, 64, 64, 4, 2, 32), (1, 128, 128, 8, 8, 64),     # test_kernels
+             (2, 96, 96, 6, 1, 16), (1, 256, 256, 2, 2, 128),    # :59-64
+             (1, 2048, 2048, 14, 2, 64),                         # qwen2 heads
+             (2, 300, 2048, 14, 2, 64)]                          # Sq != Sk
+    for B, Sq, Sk, H, K, D in cases:
+        for dt, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
+            q = _rand(gen, (B, Sq, H, D), dt)
+            k, v = (_rand(gen, (B, Sk, K, D), dt) for _ in range(2))
+            got = flash_attention(q, k, v, causal=True)
+            want = attention_ref(q, k, v, causal=True)
+            # tol is the reference's bar (bf16 against f32); both sides here
+            # compute in f32 from the same inputs, so SAME_INPUTS_TOL is the
+            # bar that can catch a fault, and it implies tol
+            bar = min(tol, SAME_INPUTS_TOL)
+            torch.testing.assert_close(got, want, rtol=bar, atol=bar)
+            emit("flash", check="vs_plain", shape=[B, Sq, Sk, H, K, D],
+                 dtype=str(dt), tol=bar,
+                 max_abs_err=float((got - want).abs().max()))
+
+    # the kernel path against the plain path at full width
+    B, S = 2, 2048
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device="cuda")
+    lk, _ = prefill(params, cfg, tokens=toks[:, :S], use_kernel=True)
+    lp, _ = prefill(params, cfg, tokens=toks[:, :S], use_kernel=False)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    lf, caches = make_prefill_step(cfg32, use_kernel=True, max_len=S + 1)(
+        params, {"tokens": toks[:, :S]})
+    lk, lp = lk.float(), lp.float()
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    f32_scale = float(lf.abs().max())
+    # how far each bf16 path lies from the f32 one: bf16's own rounding
+    # through 24 layers, the floor under the kernel-vs-plain difference.
+    # The two bf16 paths differ only in the order of f32 sums inside
+    # attention, so their distances are two draws of that rounding; a
+    # kernel fault moves logits by the size of the logits instead
+    k_rel = float((lk - lf).abs().max()) / f32_scale
+    p_rel = float((lp - lf).abs().max()) / f32_scale
+    emit("flash", check="path_bf16", batch=B, seq_len=S, max_abs_err=err,
+         max_abs_logit=scale, rel=err / scale, tol=2e-2,
+         kernel_vs_f32_rel=k_rel, plain_vs_f32_rel=p_rel,
+         rounding_margin=BF16_PATH_MARGIN)
+    assert err <= 2e-2 * scale, ("bf16 kernel path", err, scale)
+    assert k_rel <= BF16_PATH_MARGIN * p_rel, ("bf16 kernel path farther "
+                                               "from f32", k_rel, p_rel)
+    lpf, _ = prefill(params, cfg32, tokens=toks[:, :S], use_kernel=False)
+    err = float((lf - lpf).abs().max())
+    scale = float(lpf.abs().max())
+    emit("flash", check="path_f32_kernel_vs_plain", batch=B, seq_len=S,
+         max_abs_err=err, max_abs_logit=scale, rel=err / scale, tol=2e-4)
+    assert err / scale < 2e-4, ("f32 kernel path vs plain path", err, scale)
+    del lpf
+    full = forward(params, cfg32, tokens=toks, mode="prefill").logits[:, -1]
+    ld, _ = decode_step(params, cfg32, tokens=toks[:, S:], caches=caches,
+                        pos=S)
+    err = float((full - ld[:, 0]).abs().max())
+    scale = float(full.abs().max())
+    emit("flash", check="path_f32_prefill_decode", batch=B, seq_len=S,
+         max_abs_err=err, max_abs_logit=scale, rel=err / scale, tol=2e-4)
+    assert err / scale < 2e-4, ("f32 prefill-then-decode", err, scale)
+    del caches, full
+
+    # times at the main path's shape: prefill_32k, batch 1, qwen2's heads
+    B, S, H, K, D = 1, 32_768, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = _rand(gen, (B, S, H, D), torch.bfloat16)
+    k, v = (_rand(gen, (B, S, K, D), torch.bfloat16) for _ in range(2))
+    chunk = 2048
+
+    def plain():
+        # the plain version by query chunks (the whole score matrix would
+        # need 60 GB); chunk [a, b) against keys [0, b) is exactly causal
+        return torch.cat([attention_ref(q[:, a:a + chunk],
+                                        k[:, :a + chunk], v[:, :a + chunk])
+                          for a in range(0, S, chunk)], dim=1)
+
+    got, want = flash_attention(q, k, v), plain()
+    torch.testing.assert_close(got, want, rtol=SAME_INPUTS_TOL,
+                               atol=SAME_INPUTS_TOL)
+    err = float((got - want).abs().max())
+    emit("flash", check="vs_plain_main_path_shape", shape=[B, S, S, H, K, D],
+         dtype="torch.bfloat16", tol=SAME_INPUTS_TOL, max_abs_err=err)
+    del got, want
+    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), reps=5)
+    plain_ms = cuda_ms(plain, reps=2)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    library_call = ("scaled_dot_product_attention(is_causal=True, "
+                    "enable_gqa=True), fused backends")
+    with sdpa_kernel(fused):
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+    bw, f32_peak, bf16_peak = rates
+    pairs = B * S * (S + 1) // 2              # (query, key) pairs attended
+    flops = 4 * H * D * pairs                  # QK^T and PV, 2 per FMA
+    nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+           "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms, "library_call": library_call,
+           "f32_cores_bound_ms": flops / f32_peak * 1e3,
+           "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
+                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
+    emit("flash", check="main_path_shape", **row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--horizon", type=int, default=50_000,
                     help="engine-phase horizon in ticks (0.1 us each); cut "
                          "from 200,000 so the eager engine (~10 ms per "
                          "iteration on an H100 host) fits the time limit")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the model's weights and inputs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -305,6 +528,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.grouped_scatter import kernel, segment_sums
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import flash_attention
 
     walls = {}
     t_start = mark = time.perf_counter()
@@ -317,21 +542,33 @@ def main() -> int:
 
     phase_gpu()
     name = torch.cuda.get_device_name(0)
-    phase_build(kernel)
+    phase_build([kernel, flash_kernel])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
     # kernel launch counts are zeroed right before and read right after
-    segment_sums.launches = 0
+    segment_sums.launches = flash_attention.launches = 0
     phase_engine(args.horizon)
     lap("engine")
     inputs = kernel_bench_inputs()
     phase_group_apply(inputs)
     torch.cuda.synchronize()
     launches = segment_sums.launches
-    emit("main_path", launches={"segment_sums": launches})
+    emit("main_path", launches={"segment_sums": launches,
+                                "flash_attention": flash_attention.launches})
     assert launches > 0, "segment_sums never launched on the main path"
     lap("group_apply")
+
+    # the model's serving path, counted the same way
+    segment_sums.launches = flash_attention.launches = 0
+    cfg, params = phase_model(args.seed)
+    torch.cuda.synchronize()
+    flash_launches = flash_attention.launches
+    emit("model_path", launches={"segment_sums": segment_sums.launches,
+                                 "flash_attention": flash_launches})
+    assert flash_launches == cfg.n_layers, \
+        ("flash launches per prefill", flash_launches, cfg.n_layers)
+    lap("model")
 
     phase_engine_invariants()
     lap("engine_invariants")
@@ -339,8 +576,11 @@ def main() -> int:
     lap("engine_vs_cpu")
     row = phase_kernels(inputs, launches, card_rates(name))
     lap("kernels")
+    flash_row = phase_flash(cfg, params, args.seed, flash_launches,
+                            card_rates(name))
+    lap("flash")
     emit("done", wall_s=time.perf_counter() - t_start, phase_wall_s=walls)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    print(json.dumps({"kernels": [row, flash_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

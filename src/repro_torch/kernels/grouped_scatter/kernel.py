@@ -4,7 +4,8 @@
 ``repro/kernels/grouped_scatter/kernel.py::_seg_matmul_kernel``. The source
 is ``csrc/segment_sums.cu`` (design and bound are in its header). It is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at the root of
-the checkout on first use (or by :func:`build`), and loaded with ``ctypes``.
+the checkout on first use (or by :func:`build`), and loaded with ``ctypes``
+(both through :mod:`repro_torch.kernels.nvcc_build`).
 
 The wrapper launches the kernel for CUDA tensors and raises on anything the
 kernel does not take; for CPU tensors it runs the plain version
@@ -14,21 +15,15 @@ launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from ..nvcc_build import build_library, load_library
 from .ref import segment_sums_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "segment_sums.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 BD = 128                  # reduce: columns per block (must match the .cu)
 BLOCKS_PER_SM = 8         # reduce blocks resident per SM (1024 threads)
 MIN_ROWS_PER_BLOCK = 256  # sorted positions per reduce block, at least
@@ -39,39 +34,16 @@ SMEM_MAX = 227 * 1024     # dynamic shared memory a block may use
 _lib = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("segment_sums: nvcc not found; the CUDA kernel "
-                           "is built on a machine with the CUDA toolkit")
-    return path
-
-
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/segment_sums.cu`` (skipped when the library for this
     exact source is already built) and return the library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libsegment_sums_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose:
-        print(res.stderr, end="")
-    os.replace(tmp, out)
-    return out
+    return build_library(SOURCE, verbose)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = load_library(SOURCE)
         fn = lib.segment_sums_launch
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # seg, upd, out, N, D, G, is_half, counts, n_chunks, chunk, gstart,

@@ -1,0 +1,13 @@
+"""Model substrate of the port: functional layers, GQA attention and LM
+assembly (dense GQA blocks; see ``attention`` and ``transformer`` for what
+is not ported yet)."""
+from .common import (ParamSpec, spec, init_params, count_params, is_spec,
+                     tree_map_specs, tree_leaves)
+from .lm import lm_spec, forward, prefill, decode_step, LMOutput
+from .transformer import lm_init_cache, block_spec, block_apply
+
+__all__ = [
+    "ParamSpec", "spec", "init_params", "count_params", "is_spec",
+    "tree_map_specs", "tree_leaves", "lm_spec", "forward", "prefill",
+    "decode_step", "LMOutput", "lm_init_cache", "block_spec", "block_apply",
+]

@@ -1,0 +1,82 @@
+"""Carry model weights and KV caches across packages as numpy arrays.
+
+The reference stacks each layer group's parameters and caches on a leading
+"layers" axis (``lax.scan``); the port keeps a list with one entry per
+layer. :func:`params_from_numpy` takes the reference's parameter tree as
+numpy arrays (``jax.device_get(init_params(lm_spec(cfg), key))``) and
+returns the port's; :func:`caches_from_numpy` does the same for a cache tree
+and :func:`caches_to_numpy` goes back to the reference's stacked layout, so
+both packages can run from, and be compared on, the same weights and caches.
+Only the objects' structure is read, so nothing here imports the reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve
+from .attention import KVCache
+
+
+def _tensor(a, dev, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: via float32
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(dev) if dtype is None else t.to(dev, dtype)
+
+
+def _map(f, tree):
+    if isinstance(tree, dict):
+        return {k: _map(f, v) for k, v in tree.items()}
+    return f(tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """A tree whose leaves have a leading axis of ``n`` -> ``n`` trees."""
+    return [_map(lambda a: a[r], tree) for r in range(n)]
+
+
+def _n_layers(unit_tree) -> int:
+    """Length of the leading (stacked layers) axis of a unit's tree."""
+    leaf = unit_tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return int(np.shape(leaf)[0])
+
+
+def params_from_numpy(tree, device=None, dtype=None):
+    """The reference's parameter tree (numpy leaves, stacked layer groups)
+    -> the port's (tensors on ``device``, one dict per layer)."""
+    dev = resolve(device)
+    out = {k: _map(lambda a: _tensor(a, dev, dtype), v)
+           for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {
+        g: {u: [_map(lambda a: _tensor(a, dev, dtype), layer)
+                for layer in _unstack(ut, _n_layers(ut))]
+            for u, ut in gt.items()}
+        for g, gt in tree["blocks"].items()}
+    return out
+
+
+def caches_from_numpy(tree, device=None):
+    """The reference's cache tree ``{g: {u: KVCache(k=(L, B, S, K, D),
+    v=...)}}`` with numpy leaves -> the port's ``{g: {u: [KVCache]}}``."""
+    dev = resolve(device)
+    return {g: {u: [KVCache(k=_tensor(c.k[r], dev), v=_tensor(c.v[r], dev))
+                    for r in range(np.shape(c.k)[0])]
+                for u, c in gt.items()}
+            for g, gt in tree.items()}
+
+
+def caches_to_numpy(caches):
+    """The port's cache tree -> the reference's stacked layout, with numpy
+    float32 leaves (bfloat16 widened exactly)."""
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    return {g: {u: KVCache(k=np.stack([host(c.k) for c in layers]),
+                           v=np.stack([host(c.v) for c in layers]))
+                for u, layers in gt.items()}
+            for g, gt in caches.items()}

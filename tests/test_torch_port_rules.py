@@ -53,11 +53,31 @@ def test_default_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_hotspot(8)
     assert device.resolve("cpu") == torch.device("cpu")
+    # the model slice: init, prefill, the server and the flash wrapper
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import GroupServer
+    from repro_torch.models import init_params, lm_spec, prefill
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(lm_spec(cfg), 0)
+    params = init_params(lm_spec(cfg), 0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill(params, cfg, tokens=tokens)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GroupServer(cfg, params)
+    q = torch.zeros((1, 4, 2, 16), device="meta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_attention(q, q, q)
+    logits, _ = prefill(params, cfg, tokens=tokens, device="cpu")
+    assert logits.shape == (1, 1, cfg.padded_vocab)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """CPU tensors take the plain version; anything else that is not a
-    CUDA tensor pair of the right types raises before any launch."""
+    CUDA tensor pair (segment_sums) or triple (flash_attention) of the right
+    types raises before any launch."""
     from repro_torch.kernels.grouped_scatter import segment_sums
     seg = torch.zeros((4,), dtype=torch.int32)
     out = segment_sums(seg, torch.ones((4, 3)), 2)
@@ -66,3 +86,48 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         segment_sums(seg, torch.ones((4, 3), device="meta"), 2)
     assert segment_sums.launches == before
+    # the flash wrapper: without a card a non-CPU tensor already fails for
+    # the missing card, with one for its device, type or shape
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     attention_ref)
+    q = torch.randn((1, 5, 4, 16))
+    kv = torch.randn((1, 7, 2, 16))
+    torch.testing.assert_close(flash_attention(q, kv, kv),
+                               attention_ref(q, kv, kv))
+    before = flash_attention.launches
+    meta = torch.zeros((1, 7, 2, 16), device="meta")
+    qm = torch.zeros((1, 5, 4, 16), device="meta")
+    for args in [(q, meta, meta), (qm, meta, meta),
+                 (qm.half(), meta.half(), meta.half())]:
+        with pytest.raises((RuntimeError, ValueError, TypeError)):
+            flash_attention(*args)
+    assert flash_attention.launches == before
+
+
+def test_kernel_build_names_by_hash_and_needs_nvcc(tmp_path, monkeypatch):
+    """The shared nvcc helper: one library per source content, built once,
+    renamed into place; a clear error where there is no nvcc."""
+    from repro_torch.kernels import nvcc_build
+    monkeypatch.setattr(nvcc_build, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    monkeypatch.setattr(nvcc_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc_build.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        nvcc_build.build_library(src)
+    monkeypatch.undo()
+    monkeypatch.setattr(nvcc_build, "BUILD_DIR", tmp_path / "build")
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho x >> "%s"\nwhile [ "$1" != -o ]; do '
+                    'shift; done\ntouch "$2"\n' % calls)
+    fake.chmod(0o755)
+    monkeypatch.setattr(nvcc_build, "nvcc", lambda: str(fake))
+    first = nvcc_build.build_library(src)
+    assert first.parent == tmp_path / "build" and first.exists()
+    assert first.name.startswith("libk_") and first.suffix == ".so"
+    assert nvcc_build.build_library(src) == first      # reused, not rebuilt
+    src.write_text("// two\n")
+    assert nvcc_build.build_library(src) != first      # new bytes, new name
+    assert calls.read_text().count("x") == 2
+    assert not list((tmp_path / "build").glob("*.tmp"))
