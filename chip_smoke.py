@@ -6,8 +6,10 @@
 Phases, one JSON line each; any failure raises and exits non-zero:
 
   gpu               the card's name and power limit (nvidia-smi)
-  build             nvcc build of every kernel (segment_sums.cu and
-                    flash_attention.cu, one nvcc each, started together)
+  build             nvcc build of every kernel (segment_sums.cu,
+                    flash_attention.cu and flash_attention_sm90.cu, one nvcc
+                    each, started together); ptxas's registers and spills
+                    of the wgmma flash kernel's instances
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -28,7 +30,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     the time limit), 32 decode steps through make_serve_step,
                     then serve_demo at full width (12 requests, 4 slots);
                     launch counts are zeroed before it and read right after
-                    (the flash kernel: once per layer of the prefill)
+                    (the flash kernel: once per layer of the prefill, every
+                    launch on the bf16 wgmma route)
   engine_invariants drain invariants per protocol (T=64, R=4096) and the
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000)
@@ -36,13 +39,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     every SimState leaf must be equal
   kernels           segment_sums against its plain version at the reference
                     tests' shapes and at the main path's shape, with times
-  flash             the flash kernel against its plain version at the
-                    reference tests' shapes (f32 at 2e-6, bf16 at 2e-2),
-                    qwen2's heads at S = 2048 and Sq != Sk; the kernel path
-                    against the plain path at full width (B=2, S=2048: bf16
-                    last-token logits within 2e-2 of max |logit|; f32
-                    prefill-then-decode against the full forward within
-                    2e-4); times at the main path's shape
+  flash             the flash kernels against their plain versions at the
+                    reference tests' shapes, qwen2's heads at S = 2048,
+                    Sq != Sk, head dim 128 and a transposed view: f32 (FMA
+                    kernel) at 2e-6; bf16 on the wgmma kernel within 2e-2,
+                    within 1.25x (+1e-6) of the max abs and RMS error of
+                    the plain model with one bf16 rounding of P
+                    (attention_bf16p_model) against the f32 oracle, and
+                    within the bound of its split P (2^-18 max|v| + 2e-6);
+                    bf16 at head dims 16 and 32 (FMA kernel) at 1e-5. The
+                    kernel path against the plain path at full width (B=2,
+                    S=2048: bf16 last-token logits within 2e-2 of max
+                    |logit|; f32 prefill-then-decode against the full
+                    forward within 2e-4); at the main path's shape the same
+                    bf16 bar, then kernel and SDPA timed in turns (kernel,
+                    library, library, kernel), the FMA kernel once in f32
 
 The line before the last is the ``kernels`` summary and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -76,9 +87,14 @@ CARDS = {
 }
 ARCH = "qwen2-0.5b"
 DECODE_STEPS = 32
-# flash kernel against its plain version on the same inputs: both compute in
-# f32 (FMA products, no TF32), so they differ only in the order of sums
+# the FMA flash kernel against its plain version on the same inputs: both
+# compute in f32 (FMA products, no TF32), so they differ only in the order of
+# sums. The wgmma kernel splits P into two bf16 parts and is held instead to
+# ref.bf16_errors: the model with one bf16 rounding of P, and the split's
+# bound
 SAME_INPUTS_TOL = 1e-5
+# exp2 a clock on an SM's MUFU units (16 lanes), for the softmax's bound
+MUFU_EXP2_PER_CLOCK = 16
 # the bf16 kernel path may lie at most this factor farther from the f32 path
 # than the bf16 plain path does (two draws of the same bf16 rounding)
 BF16_PATH_MARGIN = 1.25
@@ -121,13 +137,20 @@ def phase_gpu() -> str:
     return line
 
 
-def phase_build(kernel_mods) -> None:
-    """One nvcc per kernel source, all started together."""
+def phase_build(kernel_mods) -> list[dict]:
+    """One nvcc per kernel source, all started together. Returns ptxas's
+    usage of the last module's kernels (the wgmma flash kernel's
+    instances)."""
+    from repro_torch.kernels.nvcc_build import ptxas_usage, report_path
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         libs = list(pool.map(lambda m: m.build(verbose=True), kernel_mods))
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(lib.relative_to(ROOT)) for lib in libs])
+    usage = ptxas_usage(report_path(libs[-1]).read_text())
+    emit("build", check="ptxas", source="flash_attention_sm90.cu",
+         kernels=usage)
+    return usage
 
 
 def check_accounting(s, T: int) -> None:
@@ -386,30 +409,78 @@ def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def phase_flash(cfg, params, seed: int, launches: int, rates) -> dict:
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     attention_ref)
+def bf16_chunked(q, k, v, fn, chunk: int = 2048):
+    """A plain causal attention ``fn`` at a long S by query chunks (the
+    whole score matrix would need 60 GB at 32k): chunk [a, b) against keys
+    [0, b) is exactly causal."""
+    S = q.shape[1]
+    return torch.cat([fn(q[:, a:a + chunk], k[:, :a + chunk],
+                         v[:, :a + chunk]) for a in range(0, S, chunk)],
+                     dim=1)
+
+
+def gpu_query(*fields: str) -> dict:
+    """nvidia-smi's reading of ``fields`` for the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    values = smi.stdout.strip().splitlines()[0].split(", ")
+    return dict(zip(fields, values))
+
+
+def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
+                ptxas: list, rates) -> dict:
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, attention_ref, attention_bf16p_model, route)
+    from repro_torch.kernels.flash_attention import kernel_sm90
+    from repro_torch.kernels.flash_attention.ref import bf16_errors
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.launch.steps import make_prefill_step
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cases = [(2, 64, 64, 4, 2, 32), (1, 128, 128, 8, 8, 64),     # test_kernels
-             (2, 96, 96, 6, 1, 16), (1, 256, 256, 2, 2, 128),    # :59-64
-             (1, 2048, 2048, 14, 2, 64),                         # qwen2 heads
-             (2, 300, 2048, 14, 2, 64)]                          # Sq != Sk
-    for B, Sq, Sk, H, K, D in cases:
-        for dt, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
-            q = _rand(gen, (B, Sq, H, D), dt)
-            k, v = (_rand(gen, (B, Sk, K, D), dt) for _ in range(2))
+    # cases added since the first flash kernel draw from their own
+    # generator, so the full-width checks below see the same tokens as then
+    extra = torch.Generator(device="cuda").manual_seed(seed + 1)
+    # (B, Sq, Sk, H, K, D, transposed view, generator)
+    cases = [(2, 64, 64, 4, 2, 32, 0, gen),         # tests/test_kernels.py
+             (1, 128, 128, 8, 8, 64, 0, gen),       # :59-64
+             (2, 96, 96, 6, 1, 16, 0, gen),
+             (1, 256, 256, 2, 2, 128, 0, gen),
+             (1, 2048, 2048, 14, 2, 64, 0, gen),    # qwen2 heads
+             (2, 300, 2048, 14, 2, 64, 0, gen),     # Sq != Sk
+             (2, 1000, 1000, 8, 2, 128, 0, extra),  # head dim 128
+             (2, 300, 300, 14, 2, 64, 1, extra)]    # (B, H, S, D) data
+
+    def rand(g, shape, dt, transposed):
+        if transposed:      # a (B, S, H, D) view of a (B, H, S, D) tensor
+            b, s_, h, d = shape
+            return _rand(g, (b, h, s_, d), dt).transpose(1, 2)
+        return _rand(g, shape, dt)
+
+    for B, Sq, Sk, H, K, D, tr, g in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = rand(g, (B, Sq, H, D), dt, tr)
+            k, v = (rand(g, (B, Sk, K, D), dt, tr) for _ in range(2))
+            path = route(q, k, v)
+            before = flash_attention.launches_by_route[path]
             got = flash_attention(q, k, v, causal=True)
+            assert flash_attention.launches_by_route[path] == before + 1
             want = attention_ref(q, k, v, causal=True)
-            # tol is the reference's bar (bf16 against f32); both sides here
-            # compute in f32 from the same inputs, so SAME_INPUTS_TOL is the
-            # bar that can catch a fault, and it implies tol
-            bar = min(tol, SAME_INPUTS_TOL)
-            torch.testing.assert_close(got, want, rtol=bar, atol=bar)
-            emit("flash", check="vs_plain", shape=[B, Sq, Sk, H, K, D],
-                 dtype=str(dt), tol=bar,
-                 max_abs_err=float((got - want).abs().max()))
+            row = dict(shape=[B, Sq, Sk, H, K, D], transposed=bool(tr),
+                       dtype=str(dt), kernel_route=path)
+            if path == "wgmma":
+                e = bf16_errors(got, want,
+                                attention_bf16p_model(q, k, v, causal=True),
+                                v)
+                emit("flash", check="vs_plain", **row, **e)
+                assert e["ok"], ("wgmma kernel vs plain", row, e)
+            else:
+                # f32: the reference's 2e-6; bf16 at head dims 16 and 32
+                # (the FMA kernel, f32 arithmetic on the same inputs): 1e-5
+                bar = 2e-6 if dt == torch.float32 else SAME_INPUTS_TOL
+                torch.testing.assert_close(got, want, rtol=bar, atol=bar)
+                emit("flash", check="vs_plain", **row, tol=bar,
+                     max_abs_err=float((got - want).abs().max()))
 
     # the kernel path against the plain path at full width
     B, S = 2, 2048
@@ -426,9 +497,10 @@ def phase_flash(cfg, params, seed: int, launches: int, rates) -> dict:
     f32_scale = float(lf.abs().max())
     # how far each bf16 path lies from the f32 one: bf16's own rounding
     # through 24 layers, the floor under the kernel-vs-plain difference.
-    # The two bf16 paths differ only in the order of f32 sums inside
-    # attention, so their distances are two draws of that rounding; a
-    # kernel fault moves logits by the size of the logits instead
+    # The two bf16 paths differ in attention's order of f32 sums (the kernel
+    # splits P into two bf16 parts: P to 2^-18), so their distances are two
+    # draws of that rounding; a kernel fault moves logits by the size of the
+    # logits instead
     k_rel = float((lk - lf).abs().max()) / f32_scale
     p_rel = float((lp - lf).abs().max()) / f32_scale
     emit("flash", check="path_bf16", batch=B, seq_len=S, max_abs_err=err,
@@ -455,28 +527,20 @@ def phase_flash(cfg, params, seed: int, launches: int, rates) -> dict:
     assert err / scale < 2e-4, ("f32 prefill-then-decode", err, scale)
     del caches, full
 
-    # times at the main path's shape: prefill_32k, batch 1, qwen2's heads
+    # the main path's shape: prefill_32k, batch 1, qwen2's heads
     B, S, H, K, D = 1, 32_768, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = _rand(gen, (B, S, H, D), torch.bfloat16)
     k, v = (_rand(gen, (B, S, K, D), torch.bfloat16) for _ in range(2))
-    chunk = 2048
-
-    def plain():
-        # the plain version by query chunks (the whole score matrix would
-        # need 60 GB); chunk [a, b) against keys [0, b) is exactly causal
-        return torch.cat([attention_ref(q[:, a:a + chunk],
-                                        k[:, :a + chunk], v[:, :a + chunk])
-                          for a in range(0, S, chunk)], dim=1)
-
-    got, want = flash_attention(q, k, v), plain()
-    torch.testing.assert_close(got, want, rtol=SAME_INPUTS_TOL,
-                               atol=SAME_INPUTS_TOL)
-    err = float((got - want).abs().max())
+    assert route(q, k, v) == "wgmma"
+    got = flash_attention(q, k, v)
+    want = bf16_chunked(q, k, v, attention_ref)
+    e = bf16_errors(got, want, bf16_chunked(q, k, v, attention_bf16p_model),
+                    v)
     emit("flash", check="vs_plain_main_path_shape", shape=[B, S, S, H, K, D],
-         dtype="torch.bfloat16", tol=SAME_INPUTS_TOL, max_abs_err=err)
+         dtype="torch.bfloat16", kernel_route="wgmma", **e)
+    assert e["ok"], ("wgmma kernel vs plain at the main path's shape", e)
     del got, want
-    kernel_ms = cuda_ms(lambda: flash_attention(q, k, v), reps=5)
-    plain_ms = cuda_ms(plain, reps=2)
+
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -484,25 +548,64 @@ def phase_flash(cfg, params, seed: int, launches: int, rates) -> dict:
              SDPBackend.CUDNN_ATTENTION]
     library_call = ("scaled_dot_product_attention(is_causal=True, "
                     "enable_gqa=True), fused backends")
-    with sdpa_kernel(fused):
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5)
+
+    def kernel_run():
+        return flash_attention(q, k, v)
+
+    def library_run():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    # in turns on one card: kernel, library, library, kernel
+    turns = [(fn, cuda_ms(fn, reps=20)) for fn in
+             (kernel_run, library_run, library_run, kernel_run)]
+    card = gpu_query("clocks.sm", "clocks.max.sm", "temperature.gpu",
+                     "power.draw", "power.limit")
+    kernel_runs = [t for fn, t in turns if fn is kernel_run]
+    library_runs = [t for fn, t in turns if fn is library_run]
+    kernel_ms = sum(kernel_runs) / 2
+    library_ms = sum(library_runs) / 2
+    plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    assert route(qf, kf, vf) == "fma"
+    earlier_ms = cuda_ms(lambda: flash_attention(qf, kf, vf), reps=1)
+    del qf, kf, vf
     bw, f32_peak, bf16_peak = rates
     pairs = B * S * (S + 1) // 2              # (query, key) pairs attended
     flops = 4 * H * D * pairs                  # QK^T and PV, 2 per FMA
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
     t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    clock = float(card["clocks.max.sm"])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_bound_ms = pairs * H / (MUFU_EXP2_PER_CLOCK * n_sm * clock * 1e6) * 1e3
+    inst = kernel_sm90.instance_name(D, kernel_sm90.DEFAULT_VARIANT[D])
+    regs = [u for u in ptxas if inst in u["kernel"]]
     row = {"name": "flash_attention", "route": "cuda",
+           "kernel_route": "wgmma",
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                     "flash_attention.cu",
+                     "flash_attention_sm90.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-           "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "launches": launches, "launches_by_route": by_route,
+           "max_abs_err": e["max_abs"], "rms_err": e["rms"],
+           "model_max_abs_err": e["model_max_abs"],
+           "model_rms_err": e["model_rms"],
+           "split_p_bound": e["split_p_bound"], "ms": kernel_ms,
+           "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms, "library_call": library_call,
+           "library_ms": library_ms, "library_ms_runs": library_runs,
+           "library_call": library_call,
+           "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+           "exp_bound_ms": exp_bound_ms, "sm_clock_max_mhz": clock,
+           "sms": n_sm, "card_after_timing": card,
+           "earlier_ms": earlier_ms,
+           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_attention.cu (f32 inputs, FMA)",
            "f32_cores_bound_ms": flops / f32_peak * 1e3,
+           "ptxas": regs[0] if regs else None,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
-                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
+                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+                     "exp2": pairs * H}}
     emit("flash", check="main_path_shape", **row)
     return row
 
@@ -529,7 +632,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.grouped_scatter import kernel, segment_sums
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention import kernel_sm90
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import ROUTES
+
+    def zero_counts():
+        segment_sums.launches = flash_attention.launches = 0
+        flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
 
     walls = {}
     t_start = mark = time.perf_counter()
@@ -542,12 +651,12 @@ def main() -> int:
 
     phase_gpu()
     name = torch.cuda.get_device_name(0)
-    phase_build([kernel, flash_kernel])
+    ptxas = phase_build([kernel, flash_kernel, kernel_sm90])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
     # kernel launch counts are zeroed right before and read right after
-    segment_sums.launches = flash_attention.launches = 0
+    zero_counts()
     phase_engine(args.horizon)
     lap("engine")
     inputs = kernel_bench_inputs()
@@ -560,14 +669,18 @@ def main() -> int:
     lap("group_apply")
 
     # the model's serving path, counted the same way
-    segment_sums.launches = flash_attention.launches = 0
+    zero_counts()
     cfg, params = phase_model(args.seed)
     torch.cuda.synchronize()
     flash_launches = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
     emit("model_path", launches={"segment_sums": segment_sums.launches,
-                                 "flash_attention": flash_launches})
+                                 "flash_attention": flash_launches,
+                                 "flash_attention_by_route": by_route})
     assert flash_launches == cfg.n_layers, \
         ("flash launches per prefill", flash_launches, cfg.n_layers)
+    assert by_route == {"wgmma": cfg.n_layers, "fma": 0}, \
+        ("a bf16 prefill's flash launches all take the wgmma route", by_route)
     lap("model")
 
     phase_engine_invariants()
@@ -576,8 +689,8 @@ def main() -> int:
     lap("engine_vs_cpu")
     row = phase_kernels(inputs, launches, card_rates(name))
     lap("kernels")
-    flash_row = phase_flash(cfg, params, args.seed, flash_launches,
-                            card_rates(name))
+    flash_row = phase_flash(cfg, params, args.seed, flash_launches, by_route,
+                            ptxas, card_rates(name))
     lap("flash")
     emit("done", wall_s=time.perf_counter() - t_start, phase_wall_s=walls)
     print(json.dumps({"kernels": [row, flash_row]}), flush=True)

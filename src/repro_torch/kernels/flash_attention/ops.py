@@ -1,25 +1,47 @@
-"""(B, S, H, D)-layout entry point of the flash attention kernel.
+"""(B, S, H, D)-layout entry point of the flash attention kernels.
 
-``flash_attention`` launches the CUDA kernel for CUDA tensors (the kernel
-reads and writes this layout through strides, so nothing is transposed) and
-counts launches in ``flash_attention.launches``. For CPU tensors it runs the
-plain version (:func:`attention_ref`). Anything else raises before a launch:
-a build or launch failure is an error, never a fallback.
+``flash_attention`` launches a CUDA kernel for CUDA tensors (both kernels
+read and write this layout through strides, so nothing is transposed) and
+counts launches in ``flash_attention.launches`` and, by route, in
+``flash_attention.launches_by_route``. :func:`route` chooses the kernel. For
+CPU tensors it runs the plain version (:func:`attention_ref`). Anything else
+raises before a launch: a build or launch failure is an error, never a
+fallback.
 """
 from __future__ import annotations
 
 import torch
 
 from ...device import resolve
-from . import kernel
+from . import kernel, kernel_sm90
 from .ref import attention_ref
+
+ROUTES = ("wgmma", "fma")
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call of :func:`flash_attention` takes:
+
+    * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``, bf16 tensor cores fed
+      by TMA, P split into two bf16 parts) for bf16 q, k and v with head
+      dim 64 or 128;
+    * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
+      for float32 inputs, which keep the reference's 2e-6 bar, and for bf16
+      at head dims 16 and 32, which only the reference's test shapes use.
+    """
+    if q.dtype == torch.bfloat16 and q.shape[-1] in kernel_sm90.HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel's vector loads can read it, else an
-    aligned contiguous copy."""
+    """``t`` itself when the kernels can read it, else an aligned contiguous
+    copy: last dimension contiguous, 16-byte-aligned base and every other
+    stride a multiple of 16 bytes (4 float32 elements for the FMA kernel's
+    vector loads, 8 bf16 elements for a TMA tensor map)."""
+    size = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:-1])):
+            and all(s * size % 16 == 0 for s in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -55,12 +77,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sk={Sk} H={H} K={K} D={D} (D in "
                          f"{kernel.HEAD_DIMS}, H % K == 0, Sk > 0)")
     scale = scale if scale is not None else D ** -0.5
+    path = route(q, k, v)
+    if path == "wgmma" and (scale < 0 or -(-Sq // kernel_sm90.BLOCK_Q)
+                            > kernel_sm90.MAX_QUERY_TILES):
+        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0 "
+                         f"and at most {kernel_sm90.MAX_QUERY_TILES} query "
+                         f"tiles of {kernel_sm90.BLOCK_Q}, got scale={scale} "
+                         f"Sq={Sq}")
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    kernel.launch(_aligned(q), _aligned(k), _aligned(v), out, causal, scale)
+    launch = kernel_sm90.launch if path == "wgmma" else kernel.launch
+    launch(_aligned(q), _aligned(k), _aligned(v), out, causal, scale)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -6,13 +6,16 @@ library under ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named after the source's stem and a hash of its bytes and
 the flags, so an edited source builds anew and an unchanged one is reused.
 The library is written to a temporary name and renamed into place, so
-concurrent builds of one source never see a half-written file.
+concurrent builds of one source never see a half-written file. A verbose
+build writes the compiler's report (``-Xptxas -v``: registers, spills)
+beside the library (:func:`report_path`).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -32,12 +35,12 @@ def nvcc() -> str:
 
 def build_library(source: Path, verbose: bool = False) -> Path:
     """Compile ``source`` (skipped when the library for these exact bytes
-    and flags exists) and return the library's path. ``verbose`` adds
-    ``-Xptxas -v`` and prints the compiler's report."""
+    and flags exists, unless ``verbose``) and return the library's path.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
-    if out.exists():
+    if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -48,11 +51,34 @@ def build_library(source: Path, verbose: bool = False) -> Path:
         raise RuntimeError(f"nvcc failed on {source.name} "
                            f"({res.returncode}):\n{res.stderr}")
     if verbose:
+        report_path(out).write_text(res.stderr)
         print(res.stderr, end="")
     os.replace(tmp, out)
     return out
 
 
+def report_path(library: Path) -> Path:
+    """Where a verbose build of ``library`` left ptxas's report."""
+    return library.with_suffix(".ptxas.txt")
+
+
 def load_library(source: Path) -> ctypes.CDLL:
     """Build ``source`` if needed and load the library."""
     return ctypes.CDLL(str(build_library(source)))
+
+
+def ptxas_usage(report: str) -> list[dict]:
+    """Per kernel of a ``-Xptxas -v`` report: its (mangled) name, registers,
+    stack frame and spill bytes."""
+    out = []
+    for block in report.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", block)
+        nums = [int(g) for g in spill.groups()] if spill else [None] * 3
+        out.append({"kernel": name,
+                    "registers": int(regs.group(1)) if regs else None,
+                    "stack_bytes": nums[0], "spill_store_bytes": nums[1],
+                    "spill_load_bytes": nums[2]})
+    return out

@@ -14,8 +14,9 @@ from repro_torch.core.lock import (EngineConfig, WorkloadSpec, CostModel,
 from repro_torch.core.lock.convert import state_to_numpy
 from repro_torch.kernels.grouped_scatter import (segment_sums,
                                                  segment_sums_ref)
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 attention_ref)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, attention_ref, attention_bf16p_model, route)
+from repro_torch.kernels.flash_attention.ref import bf16_errors
 
 PROTOS = ["mysql", "o1", "o2", "group", "bamboo", "brook2pl"]
 
@@ -65,6 +66,41 @@ def test_engine_on_card_equals_cpu(card, proto):
             np.testing.assert_array_equal(x, y, err_msg=f"{part}.{f}")
 
 
+def _flash_inputs(shape, dtype, transposed=False):
+    B, Sq, Sk, H, K, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+
+    def rand(b, s, h):
+        if transposed:      # a (B, S, H, D) view of a (B, H, S, D) tensor
+            return torch.randn((b, h, s, D), generator=gen, device="cuda"
+                               ).to(dtype).transpose(1, 2)
+        return torch.randn((b, s, h, D), generator=gen, device="cuda"
+                           ).to(dtype)
+    return rand(B, Sq, H), rand(B, Sk, K), rand(B, Sk, K)
+
+
+def _check_flash(q, k, v, causal, tol, want_route):
+    """One launch on ``want_route``; f32 held to ``tol``, bf16 on the wgmma
+    kernel to ref.bf16_errors (the model with one bf16 rounding of P, and
+    the bound of the kernel's split P), bf16 on the FMA kernel (head dims 16
+    and 32) to ``tol``."""
+    assert route(q, k, v) == want_route
+    before = flash_attention.launches
+    by_route = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    by_route[want_route] += 1
+    assert flash_attention.launches_by_route == by_route
+    want = attention_ref(q, k, v, causal=causal)
+    if want_route == "wgmma":
+        e = bf16_errors(got, want,
+                        attention_bf16p_model(q, k, v, causal=causal), v)
+        assert e["ok"], e
+    else:
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (2, 64, 64, 4, 2, 32),       # tests/test_kernels.py:59-64
@@ -75,23 +111,48 @@ def test_engine_on_card_equals_cpu(card, proto):
     (2, 37, 100, 4, 2, 32),      # Sq < Sk
     (1, 100, 37, 14, 2, 64),     # Sq > Sk: rows without a key
 ])
-# kernel and plain version both compute in f32 from the same inputs, so bf16
-# inputs are held to an f32-sized bar (1e-5), not to the reference's 2e-2,
-# which is the bar for bf16 against f32
+# f32 on the FMA kernel: the reference's 2e-6. bf16 at head dims 64 and 128
+# runs the wgmma kernel, which takes P to bf16 in two parts: it is held to
+# 1.25x the error of the plain model with one bf16 rounding of P against the
+# f32 oracle (and to the reference's 2e-2), and to its split's bound,
+# 2^-18 max|v| + 2e-6; bf16 at head dims 16 and 32 runs the FMA kernel in
+# f32 from the same inputs, held to 1e-5
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_on_card(card, shape, dtype, tol, causal):
-    B, Sq, Sk, H, K, D = shape
-    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
-    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
-               for s in ((B, Sq, H, D), (B, Sk, K, D), (B, Sk, K, D)))
+    q, k, v = _flash_inputs(shape, dtype)
+    wgmma = dtype == torch.bfloat16 and shape[-1] in (64, 128)
+    _check_flash(q, k, v, causal, tol, "wgmma" if wgmma else "fma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,transposed", [
+    ((2, 1000, 1000, 8, 2, 128), False),   # head dim 128, many tiles
+    ((1, 300, 2048, 16, 4, 128), False),   # head dim 128, Sq < Sk
+    ((2, 300, 300, 14, 2, 64), True),      # strided (B, H, S, D) data
+    ((1, 200, 200, 4, 2, 128), True),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_head_dim_128_and_strided_on_card(card, shape,
+                                                       transposed, causal):
+    q, k, v = _flash_inputs(shape, torch.bfloat16, transposed)
+    _check_flash(q, k, v, causal, None, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
+    """bf16 at head dims the wgmma kernel has no instance for takes the
+    documented FMA route (never the plain version); a head dim neither
+    kernel has raises before any launch."""
+    q, k, v = _flash_inputs((1, 100, 100, 4, 2, D), torch.bfloat16)
+    _check_flash(q, k, v, True, 1e-5, "fma")
+    q, k, v = _flash_inputs((1, 100, 100, 4, 2, 48), torch.bfloat16)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    torch.testing.assert_close(got, attention_ref(q, k, v, causal=causal),
-                               rtol=tol, atol=tol)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.cuda
