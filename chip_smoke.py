@@ -578,7 +578,7 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     clock = float(card["clocks.max.sm"])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     exp_bound_ms = pairs * H / (MUFU_EXP2_PER_CLOCK * n_sm * clock * 1e6) * 1e3
-    inst = kernel_sm90.instance_name(D, kernel_sm90.DEFAULT_VARIANT[D])
+    inst = kernel_sm90.instance_name(D)
     regs = [u for u in ptxas if inst in u["kernel"]]
     row = {"name": "flash_attention", "route": "cuda",
            "kernel_route": "wgmma",

@@ -26,7 +26,8 @@
 //    989 TFLOP/s dense bf16 = 1.95 ms (2.92 ms for the 6 * D flops a pair
 //    that the split P below executes);
 //  * exponentials: one exp2 a pair on the MUFU unit, 16 a clock an SM, so
-//    7.52e9 / (16 * 132 * f_sm) = 1.80 ms at the 1980 MHz SM clock.
+//    7.52e9 / (16 * 132 * f_sm) = 1.80 ms at the 1980 MHz maximum SM clock,
+//    2.16 ms at the 1650 MHz that nvidia-smi read as the kernel was timed.
 // Both are floors of the same order, so one warpgroup's softmax has to run
 // while another's wgmma does; the bytes (q, k, v read once, out written
 // once: 0.18 GB, 0.05 ms) are not a bound.
@@ -49,25 +50,23 @@
 //    of Sk.
 //  * O += P V: P goes to bf16 in registers as the register A operand of
 //    wgmma m64n64k16 ("RS"); V is the B operand from shared memory,
-//    MN-major (its D is contiguous), so the transposed-B bit is set. With
-//    SPLIT (the default), P is split into hi = bf16(p) and lo =
-//    bf16(p - hi) and both are multiplied by V, so P V keeps p to 2^-18 as
-//    the reference kernel's f32 P does; one bf16 P (2^-9) moves a bf16
-//    model's logits measurably (chip_smoke.py's full-width check). O stays
-//    in f32 registers, is rescaled by exp2(m_prev - m_new), and the
-//    epilogue divides by the row sum and stores f32 through out's strides.
-//  * schedule: the consumer warpgroups run unsynced, so one's softmax runs
-//    while another's wgmma does. Measured on an H100 at the prefill's shape
-//    (src/repro_torch/kernels/flash_attention/bench.py), three consumers
-//    with the serial schedule (QK^T, wait, softmax, PV, wait) beat two with
-//    the schedules of FA3: softmax(j) beside PV(j-1) inside a warpgroup
-//    (OVERLAP) and turns at the tensor cores through named barriers
-//    (PINGPONG). Overlap keeps P(j-1), S(j) and O live at once, which
-//    spills at three consumers' 160 registers. The launch's `variant` keeps
-//    those schedules and the single bf16 P for measurement; D = 64 runs
-//    three consumers (BQ = 192, 512 threads, 128 x 24 + 384 x 160
-//    registers), D = 128 two (BQ = 128, 384 threads, 128 x 24 + 256 x 240),
-//    where three spill.
+//    MN-major (its D is contiguous), so the transposed-B bit is set. P is
+//    split into hi = bf16(p) and lo = bf16(p - hi) and both are multiplied
+//    by V, so P V keeps p to 2^-18 as the reference kernel's f32 P does; one
+//    bf16 P (2^-9) moves a bf16 model's logits measurably (chip_smoke.py's
+//    full-width check). O stays in f32 registers, is rescaled by
+//    exp2(m_prev - m_new), and the epilogue divides by the row sum and
+//    stores f32 through out's strides.
+//  * schedule: each consumer warpgroup runs QK^T, wait, softmax, PV, wait;
+//    the warpgroups run unsynced, so one's softmax runs while another's
+//    wgmma does. On an H100 at the prefill's shape this beat FA3's
+//    schedules (softmax(j) beside PV(j-1) inside a warpgroup, turns at the
+//    tensor cores through named barriers) run with two consumers; that
+//    overlap keeps P(j-1), S(j) and O live at once, which spills at three
+//    consumers' 160 registers (PERF.md, Findings). D = 64 runs three
+//    consumers (BQ = 192, 512 threads, 128 x 24 + 384 x 160 registers),
+//    D = 128 two (BQ = 128, 384 threads, 128 x 24 + 256 x 240), where three
+//    spill.
 //  * causal work skip: the KV loop ends at the tile's causal limit; query
 //    tiles are issued longest-first (grid.x = heads, grid.y = query tiles
 //    in reverse), so the tiles of unequal length run in LPT order.
@@ -89,8 +88,9 @@ constexpr float MASKED = -2.0e38f;    // the reference's masked-score fill
 constexpr int ERR_TENSOR_MAP = 10000; // + CUresult of cuTensorMapEncodeTiled
 
 // NC consumer warpgroups of 64 query rows each, plus the producer
-template <int D, int NC>
+template <int D>
 struct Cfg {
+  static constexpr int NC = D == 64 ? 3 : 2;
   static constexpr int BQ = 64 * NC;                  // query rows per CTA
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 160;
@@ -187,15 +187,6 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[BK / 16][4]) {
   for (int i = 0; i < BK / 16; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-// named barriers 1..NC order the consumers' turns at the tensor cores
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // d[64] (+)= A (64 x 16, shared) . B (16 x 128, shared), both K-major
@@ -338,19 +329,18 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
   }
 }
 
-// P as wgmma's register A fragments: hi = bf16(p) and, with SPLIT,
-// lo = bf16(p - hi), so that hi + lo holds p to ~2^-16 and P V keeps the
-// f32 P of the reference kernel at twice the PV tensor work
-template <bool SPLIT>
+// P as wgmma's register A fragments: hi = bf16(p) and lo = bf16(p - hi),
+// so that hi + lo holds p to ~2^-16 and P V keeps the f32 P of the
+// reference kernel at twice the PV tensor work
 struct PFrag {
   uint32_t hi[BK / 16][4];
-  uint32_t lo[SPLIT ? BK / 16 : 1][4];
+  uint32_t lo[BK / 16][4];
 };
 
 // O += P V for one warpgroup: V's 128 keys at vb, 64 columns a box
-template <int CH, bool SPLIT>
-__device__ __forceinline__ void issue_pv(float (&o)[CH][32],
-                                         const PFrag<SPLIT>& p, uint32_t vb) {
+template <int CH>
+__device__ __forceinline__ void issue_pv(float (&o)[CH][32], const PFrag& p,
+                                         uint32_t vb) {
 #pragma unroll
   for (int c = 0; c < CH; ++c)
 #pragma unroll
@@ -358,7 +348,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[CH][32],
       const uint64_t dv =
           make_desc(vb + c * BOX_BYTES + kk * 2048, 1024, 1024);
       wgmma_pv(o[c], p.hi[kk], dv);
-      if constexpr (SPLIT) wgmma_pv(o[c], p.lo[kk], dv);
+      wgmma_pv(o[c], p.lo[kk], dv);
     }
 }
 
@@ -380,9 +370,8 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2],
 // O *= alpha (per row), then P = bf16(s) as wgmma's register A fragments:
 // the accumulator layout of S's columns 16kk..16kk+15 is the A layout of
 // the k-step kk, so the conversion moves no data between lanes.
-template <int CH, bool SPLIT>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[CH][32],
-                                                 PFrag<SPLIT>& p,
+template <int CH>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[CH][32], PFrag& p,
                                                  const float (&s)[64],
                                                  const float (&alpha)[2]) {
 #pragma unroll
@@ -396,9 +385,9 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[CH][32],
       const float a = s[8 * kk + 2 * r], b = s[8 * kk + 2 * r + 1];
       const uint32_t h = pack_bf16(a, b);
       p.hi[kk][r] = h;
-      if constexpr (SPLIT)    // bf16 -> f32 is exact: the high half's bits
-        p.lo[kk][r] = pack_bf16(a - __uint_as_float(h << 16),
-                                b - __uint_as_float(h & 0xffff0000u));
+      // bf16 -> f32 is exact: the high half's bits
+      p.lo[kk][r] = pack_bf16(a - __uint_as_float(h << 16),
+                              b - __uint_as_float(h & 0xffff0000u));
     }
 }
 
@@ -410,45 +399,25 @@ __device__ __forceinline__ void fence_o(float (&o)[CH][32]) {
 
 // wgmma.fence, with the registers a wgmma batch reads pinned before it, so
 // that no write to them is scheduled after the fence
-template <int CH, bool SPLIT>
+template <int CH>
 __device__ __forceinline__ void fence_operands(float (&s)[64],
-                                               float (&o)[CH][32],
-                                               PFrag<SPLIT>& p) {
+                                               float (&o)[CH][32], PFrag& p) {
   fence_regs(s);
   fence_o(o);
   fence_regs(p.hi);
-  if constexpr (SPLIT) fence_regs(p.lo);
+  fence_regs(p.lo);
   wgmma_fence();
 }
 
-// Turns of the consumer warpgroups at the tensor cores (PINGPONG): warpgroup
-// c issues its wgmma batch between bar_sync(1 + c) and an arrive on the next
-// warpgroup's barrier, so one warpgroup's softmax runs while the next one's
-// products do. The last warpgroup opens the first turn and skips its final
-// hand-over, so every barrier sees as many arrivals as syncs.
-template <int NC, bool ON>
-struct Turns {
-  int cw;
-  __device__ __forceinline__ void open() const {
-    if (ON && cw == NC - 1) bar_arrive(1, 256);
-  }
-  __device__ __forceinline__ void take() const {
-    if (ON) bar_sync(1 + cw, 256);
-  }
-  __device__ __forceinline__ void pass(bool last) const {
-    if (ON && !(last && cw == NC - 1)) bar_arrive(1 + (cw + 1) % NC, 256);
-  }
-};
-
-// A consumer warpgroup's loop over KV tiles j: without OVERLAP, QK^T(j),
-// wait, softmax(j), PV(j), wait; with it, QK^T(j) and PV(j-1) are issued
-// together and softmax(j) runs while PV(j-1) does.
-template <int D, int NC, bool OVERLAP, bool PINGPONG, bool SPLIT>
-__global__ void __launch_bounds__(Cfg<D, NC>::THREADS, 1)
+// A consumer warpgroup's loop over KV tiles j: QK^T(j), wait, softmax(j),
+// PV(j), wait.
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
                   const __grid_constant__ CUtensorMap tmk,
                   const __grid_constant__ CUtensorMap tmv, const Params prm) {
-  using C = Cfg<D, NC>;
+  using C = Cfg<D>;
+  constexpr int NC = C::NC;
   constexpr int ST = C::STAGES;
   constexpr int CH = C::CHUNKS;
   constexpr int BQ = C::BQ;
@@ -519,7 +488,6 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
     const Rows rw{row0 + 16 * warp + lane / 4, lane};
     // the warpgroup's 64 rows of Q: 64 rows x 128 bytes into each box
     const uint32_t qa = sQ + 64 * 128 * cw;
-    const Turns<NC, PINGPONG> turn{cw};
 
     float o[CH][32];
 #pragma unroll
@@ -527,78 +495,29 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
     float s[64];
-    PFrag<SPLIT> p;
+    PFrag p;
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
 
-    turn.open();
     mbar_wait(q_full, 0);
-    if constexpr (OVERLAP) {
-      // tile 0's scores, then per tile j: QK^T(j) and PV(j-1) in flight
-      // together, softmax(j) while PV(j-1) runs
-      mbar_wait(k_full, 0);
-      turn.take();
+    for (int j = 0; j < n_kv; ++j) {
+      const int sj = j % ST;
+      const uint32_t ph = (j / ST) & 1;
+      mbar_wait(k_full + 8 * sj, ph);
       fence_operands(s, o, p);
-      issue_qk<D, C::Q_BOX>(s, qa, sK);
+      issue_qk<D, C::Q_BOX>(s, qa, sK + sj * C::TILE_BYTES);
       wgmma_commit();
-      turn.pass(false);
       wgmma_wait<0>();
       fence_regs(s);
-      if (lane == 0) mbar_arrive(k_empty);
-      softmax_step(s, m, l, alpha, prm, 0, row0, rw, shift);
+      if (lane == 0) mbar_arrive(k_empty + 8 * sj);
+      softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
       rescale_and_pack(o, p, s, alpha);
-      for (int j = 1; j < n_kv; ++j) {
-        const int sj = j % ST, sp = (j - 1) % ST;
-        mbar_wait(k_full + 8 * sj, (j / ST) & 1);
-        mbar_wait(v_full + 8 * sp, ((j - 1) / ST) & 1);
-        turn.take();
-        fence_operands(s, o, p);
-        issue_qk<D, C::Q_BOX>(s, qa, sK + sj * C::TILE_BYTES);
-        wgmma_commit();
-        issue_pv(o, p, sV + sp * C::TILE_BYTES);
-        wgmma_commit();
-        turn.pass(false);
-        wgmma_wait<1>();                 // QK^T(j) done, PV(j-1) may run
-        fence_regs(s);
-        if (lane == 0) mbar_arrive(k_empty + 8 * sj);
-        softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
-        wgmma_wait<0>();
-        fence_o(o);
-        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
-        rescale_and_pack(o, p, s, alpha);
-      }
-      const int sl = (n_kv - 1) % ST;
-      mbar_wait(v_full + 8 * sl, ((n_kv - 1) / ST) & 1);
-      turn.take();
+      mbar_wait(v_full + 8 * sj, ph);
       fence_operands(s, o, p);
-      issue_pv(o, p, sV + sl * C::TILE_BYTES);
+      issue_pv(o, p, sV + sj * C::TILE_BYTES);
       wgmma_commit();
-      turn.pass(true);
       wgmma_wait<0>();
       fence_o(o);
-      if (lane == 0) mbar_arrive(v_empty + 8 * sl);
-    } else {
-      for (int j = 0; j < n_kv; ++j) {
-        const int sj = j % ST;
-        const uint32_t ph = (j / ST) & 1;
-        mbar_wait(k_full + 8 * sj, ph);
-        turn.take();
-        fence_operands(s, o, p);
-        issue_qk<D, C::Q_BOX>(s, qa, sK + sj * C::TILE_BYTES);
-        wgmma_commit();
-        turn.pass(j == n_kv - 1);
-        wgmma_wait<0>();
-        fence_regs(s);
-        if (lane == 0) mbar_arrive(k_empty + 8 * sj);
-        softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
-        rescale_and_pack(o, p, s, alpha);
-        mbar_wait(v_full + 8 * sj, ph);
-        fence_operands(s, o, p);
-        issue_pv(o, p, sV + sj * C::TILE_BYTES);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_o(o);
-        if (lane == 0) mbar_arrive(v_empty + 8 * sj);
-      }
+      if (lane == 0) mbar_arrive(v_empty + 8 * sj);
     }
 
     // epilogue: the row sums reduce over the 4 lanes of a row
@@ -673,53 +592,43 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
 }
 
-template <int D, int NC, bool OVERLAP, bool PINGPONG, bool SPLIT>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const long long* st,
            Params prm, int B, cudaStream_t stream) {
-  using C = Cfg<D, NC>;
+  using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   int e = make_map(&tq, q, D, prm.H, prm.Sq, B, st, C::BQ);
   if (e == 0) e = make_map(&tk, k, D, prm.KH, prm.Sk, B, st + 3, BK);
   if (e == 0) e = make_map(&tv, v, D, prm.KH, prm.Sk, B, st + 6, BK);
   if (e != 0) return e;
-  const void* fn =
-      (const void*)flash_sm90_kernel<D, NC, OVERLAP, PINGPONG, SPLIT>;
+  const void* fn = (const void*)flash_sm90_kernel<D>;
   cudaError_t ce = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (ce != cudaSuccess) return (int)ce;
   const dim3 grid(prm.H, (prm.Sq + C::BQ - 1) / C::BQ, B);
-  flash_sm90_kernel<D, NC, OVERLAP, PINGPONG, SPLIT>
-      <<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, prm);
+  flash_sm90_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(tq, tk, tv, prm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // strides: 12 element strides on the host (q b,s,h | k b,s,h | v b,s,h |
-// out b,s,h). scale_log2 = scale * log2(e) >= 0. variant: the schedule,
-// as kernel_sm90.py's VARIANTS lists them. Returns 0 on success, a
+// out b,s,h). scale_log2 = scale * log2(e) >= 0. Returns 0 on success, a
 // cudaError_t, or 10000 + the CUresult of a refused tensor map.
 extern "C" int flash_attention_sm90_launch(
     const void* q, const void* k, const void* v, void* out, int D, int B,
     int H, int KH, int Sq, int Sk, const void* strides, float scale_log2,
-    int causal, int variant, void* stream) {
+    int causal, void* stream) {
   const long long* st = static_cast<const long long*>(strides);
   const Params prm{static_cast<float*>(out), st[9], st[10], st[11], H, KH,
                    Sq, Sk, causal, scale_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SM90_CASE(DIM, V, NC, OV, PP, SP)                                     \
-  case DIM * 16 + V:                                                         \
-    return launch<DIM, NC, OV, PP, SP>(q, k, v, st, prm, B, s);
-  switch (D * 16 + variant) {
-    SM90_CASE(64, 0, 2, false, false, false)
-    SM90_CASE(64, 1, 2, true, false, false)
-    SM90_CASE(64, 2, 2, true, true, false)
-    SM90_CASE(64, 3, 3, false, false, false)
-    SM90_CASE(64, 4, 3, false, false, true)
-    SM90_CASE(128, 0, 2, false, false, false)
-    SM90_CASE(128, 5, 2, false, false, true)
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, st, prm, B, s);
+    case 128:
+      return launch<128>(q, k, v, st, prm, B, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef SM90_CASE
 }

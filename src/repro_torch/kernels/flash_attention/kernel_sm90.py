@@ -2,14 +2,14 @@
 
 The source is ``csrc/flash_attention_sm90.cu`` (design and bounds are in
 its header): wgmma on the tensor cores, fed by TMA, with a producer
-warpgroup and two or three consumer warpgroups, P split into two bf16
-parts so that P V keeps f32 accuracy. It replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py::_flash_kernel`` for bf16 inputs
-at head dims 64 and 128; ``kernel.py`` (float32 FMA) keeps the rest. It is
-compiled with ``nvcc`` for ``sm_90a`` into ``build/kernels/`` on first use
-(or by :func:`build`) and loaded with ``ctypes``, both through
-:mod:`repro_torch.kernels.nvcc_build`. The checked entry point with the
-launch counts is
+warpgroup and three consumer warpgroups at head dim 64 (two at 128), P
+split into two bf16 parts so that P V keeps f32 accuracy. It replaces the
+Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py::_flash_kernel``
+for bf16 inputs at head dims 64 and 128; ``kernel.py`` (float32 FMA) keeps
+the rest. It is compiled with ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` on first use (or by :func:`build`) and loaded with
+``ctypes``, both through :mod:`repro_torch.kernels.nvcc_build`. The checked
+entry point with the launch counts is
 :func:`repro_torch.kernels.flash_attention.ops.flash_attention`.
 """
 from __future__ import annotations
@@ -25,19 +25,6 @@ from ..nvcc_build import build_library, load_library
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_sm90.cu"
 HEAD_DIMS = (64, 128)               # the .cu's template instances
 BLOCK_Q = BLOCK_K = 128             # fewest query rows per CTA, keys per tile
-# the .cu's schedules (``variant``): (consumer warpgroups of 64 query rows,
-# overlap, ping-pong, split P). Without overlap a warpgroup waits for QK^T,
-# runs the softmax, then PV; with it, QK^T(j) is issued with PV(j-1) and
-# softmax(j) runs beside that PV; ping-pong gives the warpgroups turns at
-# the tensor cores; split P multiplies V by bf16(p) and by bf16(p - bf16(p))
-# (P to 2^-18, as the reference kernel's f32 P) instead of by bf16(p)
-# alone. The defaults split P (one bf16 P fails chip_smoke.py's full-width
-# bf16 check) and are the fastest such schedules ``bench.py`` measured.
-VARIANTS = {0: (2, False, False, False), 1: (2, True, False, False),
-            2: (2, True, True, False), 3: (3, False, False, False),
-            4: (3, False, False, True), 5: (2, False, False, True)}
-HEAD_DIM_VARIANTS = {64: (0, 1, 2, 3, 4), 128: (0, 5)}
-DEFAULT_VARIANT = {64: 4, 128: 5}
 MAX_QUERY_TILES = 65535             # grid.y
 ERR_TENSOR_MAP = 10000              # + the CUresult of a refused tensor map
 
@@ -58,26 +45,20 @@ def _load():
         fn = lib.flash_attention_sm90_launch
         P, I = ctypes.c_void_p, ctypes.c_int
         # q, k, v, out, D, B, H, K, Sq, Sk, strides, scale * log2(e), causal,
-        # variant, stream
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P, ctypes.c_float, I, I,
-                       P]
+        # stream
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, P, ctypes.c_float, I, P]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, causal: bool, scale: float,
-           variant: int | None = None) -> None:
+           out: torch.Tensor, causal: bool, scale: float) -> None:
     """Launch on tensors the caller has checked: q (B, Sq, H, D), k/v
     (B, Sk, K, D) bf16 with D in :data:`HEAD_DIMS`, out (B, Sq, H, D) f32,
     all on one CUDA device, last dimension contiguous, strides a multiple of
-    8 elements and 16-byte-aligned bases, ``scale >= 0``. ``variant``
-    (a key of :data:`VARIANTS`) picks a schedule other than the default,
-    for measurement."""
+    8 elements and 16-byte-aligned bases, ``scale >= 0``."""
     B, Sq, H, D = q.shape
-    if variant is None:
-        variant = DEFAULT_VARIANT[D]
     Sk, K = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
@@ -86,8 +67,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _load().flash_attention_sm90_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), D, B,
             H, K, Sq, Sk, ctypes.cast(strides, ctypes.c_void_p),
-            float(scale) * math.log2(math.e), int(causal), int(variant),
-            stream)
+            float(scale) * math.log2(math.e), int(causal), stream)
     if err >= ERR_TENSOR_MAP:
         raise RuntimeError(f"flash_attention (wgmma): cuTensorMapEncodeTiled "
                            f"refused a tensor map (CUresult "
@@ -97,9 +77,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"with error {err}")
 
 
-def instance_name(D: int, variant: int) -> str:
+def instance_name(D: int) -> str:
     """The mangled-name fragment of the kernel instance a launch at head dim
-    ``D`` with ``variant`` runs (for reading ptxas's report)."""
-    nc, overlap, pingpong, split = VARIANTS[variant]
-    return (f"flash_sm90_kernelILi{D}ELi{nc}ELb{int(overlap)}"
-            f"ELb{int(pingpong)}ELb{int(split)}E")
+    ``D`` runs (for reading ptxas's report)."""
+    return f"flash_sm90_kernelILi{D}EE"

@@ -35,12 +35,16 @@ def nvcc() -> str:
 
 def build_library(source: Path, verbose: bool = False) -> Path:
     """Compile ``source`` (skipped when the library for these exact bytes
-    and flags exists, unless ``verbose``) and return the library's path.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    and flags exists and, if ``verbose``, so does its report) and return the
+    library's path. ``verbose`` adds ``-Xptxas -v``, keeps the compiler's
+    report beside the library and prints it."""
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{source.stem}_{digest}.so"
     if out.exists() and not verbose:
+        return out
+    if out.exists() and report_path(out).exists():
+        print(report_path(out).read_text(), end="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -10,6 +10,8 @@ in f32 with the rounding off, and the bar built on it
 routing rule (dtype and head dim), the wrappers' stride rule per dtype and
 the ptxas report parser the smoke prints registers with.
 """
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -166,7 +168,7 @@ def test_aligned_stride_rule_per_dtype(dtype, copied):
 def test_ptxas_usage_reads_registers_and_spills():
     report = (
         "ptxas info    : Compiling entry function "
-        "'_ZN1n17flash_sm90_kernelILi64ELi3ELb0ELb0ELb1EEEv' for 'sm_90a'\n"
+        "'_ZN1n17flash_sm90_kernelILi64EEEv' for 'sm_90a'\n"
         "ptxas info    : Function properties for _Z1a\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 1 barriers\n"
@@ -175,29 +177,24 @@ def test_ptxas_usage_reads_registers_and_spills():
         "loads\n"
         "ptxas info    : Used 168 registers, used 16 barriers\n")
     a, b = ptxas_usage(report)
-    assert a == {"kernel": "_ZN1n17flash_sm90_kernelILi64ELi3ELb0ELb0ELb1EEEv",
+    assert a == {"kernel": "_ZN1n17flash_sm90_kernelILi64EEEv",
                  "registers": 128,
                  "stack_bytes": 0, "spill_store_bytes": 0,
                  "spill_load_bytes": 0}
     assert (b["registers"], b["spill_store_bytes"]) == (168, 104)
-    assert kernel_sm90.instance_name(64, kernel_sm90.DEFAULT_VARIANT[64]) \
-        in a["kernel"]
+    assert kernel_sm90.instance_name(64) in a["kernel"]
+    assert kernel_sm90.instance_name(128) not in a["kernel"]
     assert ptxas_usage("") == []
 
 
-def test_variant_table_matches_the_source():
-    """Every (head dim, variant) the launcher dispatches is in the .cu's
-    switch, and the defaults are among them and split P."""
+def test_head_dims_match_the_source():
+    """The launcher's switch has one kernel instance per head dim of
+    HEAD_DIMS, and no other."""
     src = kernel_sm90.SOURCE.read_text()
-    for D in kernel_sm90.HEAD_DIMS:
-        allowed = kernel_sm90.HEAD_DIM_VARIANTS[D]
-        default = kernel_sm90.DEFAULT_VARIANT[D]
-        assert default in allowed and kernel_sm90.VARIANTS[default][3]
-        for var in allowed:
-            flags = ", ".join(str(f).lower()
-                              for f in kernel_sm90.VARIANTS[var][1:])
-            case = f"SM90_CASE({D}, {var}, {kernel_sm90.VARIANTS[var][0]}, "
-            assert case + flags + ")" in src, case + flags
+    entry = src[src.index('extern "C" int flash_attention_sm90_launch'):]
+    cases = re.findall(r"case (\d+):\s+return launch<(\d+)>", entry)
+    assert [(int(a), int(b)) for a, b in cases] == \
+        [(d, d) for d in kernel_sm90.HEAD_DIMS]
 
 
 @pytest.mark.parametrize("shape,causal", [((1, 333, 333, 14, 2, 64), True),

@@ -134,20 +134,28 @@ def test_kernel_build_names_by_hash_and_needs_nvcc(tmp_path, monkeypatch):
 
 
 def test_verbose_build_always_compiles_and_keeps_the_report(tmp_path,
-                                                            monkeypatch):
-    """A verbose build (chip_smoke.py's) compiles even when the library
-    exists, so ptxas's report of registers and spills is always there,
-    beside the library."""
+                                                            monkeypatch,
+                                                            capsys):
+    """A verbose build (chip_smoke.py's) compiles when the library exists
+    without its report, so ptxas's report of registers and spills is always
+    there, beside the library; once both exist it reuses them."""
     from repro_torch.kernels import nvcc_build
     monkeypatch.setattr(nvcc_build, "BUILD_DIR", tmp_path / "build")
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
     fake = tmp_path / "nvcc"
-    fake.write_text('#!/bin/sh\necho "ptxas info    : Used 7 registers" >&2\n'
-                    'while [ "$1" != -o ]; do shift; done\ntouch "$2"\n')
+    calls = tmp_path / "calls"
+    fake.write_text('#!/bin/sh\necho x >> "%s"\n'
+                    'echo "ptxas info    : Used 7 registers" >&2\n'
+                    'while [ "$1" != -o ]; do shift; done\ntouch "$2"\n'
+                    % calls)
     fake.chmod(0o755)
     monkeypatch.setattr(nvcc_build, "nvcc", lambda: str(fake))
     lib = nvcc_build.build_library(src)
     assert not nvcc_build.report_path(lib).exists()
     assert nvcc_build.build_library(src, verbose=True) == lib
     assert "Used 7 registers" in nvcc_build.report_path(lib).read_text()
+    assert calls.read_text().count("x") == 2
+    assert nvcc_build.build_library(src, verbose=True) == lib   # reused
+    assert "Used 7 registers" in capsys.readouterr().out
+    assert calls.read_text().count("x") == 2
