@@ -320,28 +320,31 @@ def chop(spec) -> ChopPlan:
 # ---------------------------------------------------------------------------
 
 def apply_acquisition_order(rank: torch.Tensor, keys: torch.Tensor,
-                            iswr: torch.Tensor, txn_len: int):
+                            iswr: torch.Tensor, txn_len):
     """Re-sort each transaction's ACTIVE ops into canonical rank order.
 
     ``rank`` is the (R,) table from :func:`acquisition_rank` on the
-    engine's device; ``keys`` / ``iswr`` are the (T, L) generated
-    programs; ``txn_len`` bounds the active slots — padded slots keep
-    their positions after every active one. The sort key
-    ``rank * L + slot`` is unique per row, so the argsort is
-    deterministic and same-key ops stay in program order. The caller
-    applies this only when ``ordered_acquire`` is on (the flag is known
-    on the host for a single-lane run).
+    engine's device, with ``keys`` / ``iswr`` the (T, L) generated
+    programs; or, for a pack of lanes, (G, R) tables with (G, T, L)
+    programs. ``txn_len`` bounds the active slots (an int, or a (G, 1, 1)
+    tensor per lane) — padded slots keep their positions after every
+    active one. The sort key ``rank * L + slot`` is unique per row, so the
+    argsort is deterministic and same-key ops stay in program order. The
+    caller applies this only where ``ordered_acquire`` is on.
     """
-    T, L = keys.shape
-    assert rank.shape[0] * L < int(_PAD_KEY), (
-        f"chop sort key overflow: n_rows*L = {rank.shape[0] * L} "
+    L = keys.shape[-1]
+    assert rank.shape[-1] * L < int(_PAD_KEY), (
+        f"chop sort key overflow: n_rows*L = {rank.shape[-1] * L} "
         f">= {int(_PAD_KEY)}; shrink the key space or raise _PAD_KEY")
-    slot = torch.arange(L, dtype=torch.int32, device=keys.device)[None, :]
-    active = slot < txn_len
-    skey = torch.where(active, rank[keys.long()] * L + slot,
-                       int(_PAD_KEY) + slot)
-    order = torch.argsort(skey, dim=1)
-    return (torch.gather(keys, 1, order), torch.gather(iswr, 1, order))
+    if rank.dim() == 1:
+        rk = rank[keys.long()]
+    else:
+        rk = rank.gather(1, keys.reshape(keys.shape[0], -1).long()
+                         ).view(keys.shape)
+    slot = torch.arange(L, dtype=torch.int32, device=keys.device)
+    skey = torch.where(slot < txn_len, rk * L + slot, int(_PAD_KEY) + slot)
+    order = torch.argsort(skey, dim=-1)
+    return (torch.gather(keys, -1, order), torch.gather(iswr, -1, order))
 
 
 def last_use(keys: torch.Tensor, nops: torch.Tensor) -> torch.Tensor:

@@ -106,9 +106,14 @@ def extract(protocol: str, n_threads: int, s: SimState) -> SimResult:
     return extract_globals(protocol, n_threads, s.g)
 
 
-def extract_globals(protocol: str, n_threads: int, g) -> SimResult:
+def extract_globals(protocol: str, n_threads: int, g,
+                    lane: int | None = None) -> SimResult:
     """Extract from the Globals leaf alone (all metrics live there) — the
-    sweep runner uses this to avoid hauling full states off device."""
+    sweep runner uses this to avoid hauling full states off device.
+    ``lane`` picks one lane of a pack's Globals (a leading lane axis on
+    every leaf); only that lane's leaves are copied to the host."""
+    if lane is not None:
+        g = type(g)(*(v[lane] for v in g))
     g = type(g)(*(_np(v) for v in g))
     commits = int(g.commits)
     aborts = int(g.user_aborts) + int(g.forced_aborts)
@@ -167,3 +172,13 @@ def extract_segment(protocol: str, n_threads: int, g0, g1) -> SimResult:
 CSV_HEADER = ("protocol,threads,tps,mean_lat_us,p95_lat_us,abort_rate,"
               "lock_ops,cpu_util,lock_wait_frac")
 
+
+
+def bench_row(name: str, wall_us: float, r: SimResult) -> str:
+    """The benchmark harness's ``name,us_per_call,derived`` row — shared by
+    the per-config path and the sweep path (``repro_torch.sweep.summarize``)
+    so the two dialects can't drift apart."""
+    return (f"{name},{wall_us:.0f},"
+            f"tps={r.tps:.0f};p95us={r.p95_latency_us:.0f}"
+            f";abort={r.abort_rate:.3f};lockops={r.lock_ops}"
+            f";cpu={r.cpu_util:.2f};waitfrac={r.lock_wait_frac:.2f}")

@@ -29,7 +29,10 @@ Numerics that must match the reference exactly:
 * The Zipf table is float32 and searched left-sided.
 
 :class:`DynWorkload` holds host scalars plus two device tables (the Zipf CDF
-and the chop acquisition rank), with the reference's field names.
+and the chop acquisition rank), with the reference's field names. A pack of
+G lanes stacks it (``engine.stack_lanes``): numpy (G,) scalars and (G, R)
+tables. :func:`gen_txn_lanes` generates for a pack, with each scalar either
+a host value (every lane agrees) or a (G, 1) tensor.
 """
 from __future__ import annotations
 
@@ -71,6 +74,8 @@ class WorkloadSpec:
 class DynWorkload(NamedTuple):
     """Per-config workload values. Scalars are host values (f32-rounded
     where the reference holds f32); the tables live on the engine's device.
+    Stacked over G lanes the scalars are numpy (G,) arrays in the
+    reference's dtypes and the tables (G, R) tensors.
     """
     txn_len: int                # ACTIVE ops per txn (<= padded L)
     write_ratio: float          # f32 value
@@ -153,61 +158,80 @@ def zipf_cdf_table(n: int, s: float, device=None) -> torch.Tensor:
 # transaction generation
 # ---------------------------------------------------------------------------
 
-def _scale(u: torch.Tensor, span: int) -> torch.Tensor:
+def _scale(u: torch.Tensor, span) -> torch.Tensor:
     """``u * span`` rounded to f32, as the reference's i32 -> f32 promotion
     computes it. ``span`` < 2**24 is exact in f32, so the product of two f32
     values is exact in double and rounds to the same f32 either way."""
+    if torch.is_tensor(span):
+        return u * span.to(F32)
     assert 0 <= span < 2**24, span
     return u * float(span)
 
 
-def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
-                thread_ids: torch.Tensor, txn_ctr: torch.Tensor,
-                acq_order: bool = False):
-    """Generate transaction programs for every thread.
+def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``clip(x, lo, hi)`` with either bound a host int or a tensor."""
+    x = torch.maximum(x, lo) if torch.is_tensor(lo) else x.clamp(min=lo)
+    return torch.minimum(x, hi) if torch.is_tensor(hi) else x.clamp(max=hi)
+
+
+def _e(v):
+    """A per-lane (G, 1) value broadcast against (G, T, L); host values
+    pass through."""
+    return v[..., None] if torch.is_tensor(v) else v
+
+
+def gen_txn_lanes(kind: str, n_rows: int, L: int, dw: DynWorkload,
+                  thread_ids: torch.Tensor, txn_ctr: torch.Tensor,
+                  acq_order=False):
+    """Generate transaction programs for every thread of G lanes.
 
     Args:
       kind: workload kind.
       n_rows: key space R.
       L: padded op-slot count. Slots >= ``dw.txn_len`` are generated but
          never executed (``nops`` stops the engine first).
-      dw: workload values.
+      dw: the lanes' workload values: each scalar a host value shared by
+         every lane or a (G, 1) tensor (``seed`` in int64), the tables
+         (G, R) tensors.
       thread_ids: (T,) int32.
-      txn_ctr: (T,) int32 per-thread transaction counter.
+      txn_ctr: (G, T) int32 per-thread transaction counters.
       acq_order: re-sort each txn's active ops into the canonical chop rank
          order (``dw.acq_rank``) before the dup/last-use analysis
-         (Brook-2PL's ``ordered_acquire``).
+         (Brook-2PL's ``ordered_acquire``): a host bool, or a (G, 1) bool
+         tensor that selects per lane.
 
-    Returns ``keys`` (T, L) i32, ``iswr`` (T, L) bool, ``dup`` (T, L) bool
-    (key already written earlier in the txn), ``lastu`` (T, L) bool (slot is
-    its key's last active use) and ``nops`` (T,) i32.
+    Returns ``keys`` (G, T, L) i32, ``iswr`` (G, T, L) bool, ``dup``
+    (G, T, L) bool (key already written earlier in the txn), ``lastu``
+    (G, T, L) bool (slot is its key's last active use) and ``nops`` (G, T)
+    i32.
     """
-    T = thread_ids.shape[0]
+    G, T = txn_ctr.shape
     dev = thread_ids.device
     tid = thread_ids[:, None]
-    ctr = txn_ctr[:, None]
-    slot = torch.arange(L, dtype=I32, device=dev)[None, :]
+    ctr = txn_ctr[..., None]
+    slot = torch.arange(L, dtype=I32, device=dev)
 
     base = tid * 1_000_003 + ctr                          # i32, wraps
     # the key draw (c=0, salt seed*7+1) and the write draw (c=1, salt
     # seed*7+2) hashed together along a leading axis of 2
-    pair = torch.arange(2, dtype=torch.int64, device=dev)[:, None, None]
-    u_key, u_wr = _uniform01(_hash3(base[None], slot[None], pair,
-                                    pair + (dw.seed * 7 + 1)))
+    pair = torch.arange(2, dtype=torch.int64, device=dev)[:, None, None, None]
+    u_key, u_wr = _uniform01(_hash3(base[None], slot, pair,
+                                    pair + (_e(dw.seed) * 7 + 1)))
 
     R = n_rows
 
     def zipf_keys(u):
-        k = torch.searchsorted(dw.zcdf, u.contiguous(), right=False)
+        k = torch.searchsorted(dw.zcdf, u.reshape(G, -1).contiguous(),
+                               right=False).view(u.shape)
         return k.clamp(0, R - 1).to(I32)
 
     def uniform_keys(u, lo=0, hi=None):
         hi = R if hi is None else hi
-        return (lo + _scale(u, hi - lo).to(I32)).clamp(lo, hi - 1)
+        return _clip(lo + _scale(u, hi - lo).to(I32), lo, hi - 1)
 
-    wr = u_wr < dw.write_ratio
+    wr = u_wr < _e(dw.write_ratio)
 
-    hb = dw.hot_base % R
+    hb = _e(dw.hot_base) % R
 
     if kind == "hotspot_update":
         k_rest = uniform_keys(u_key, lo=1)
@@ -218,8 +242,10 @@ def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
         keys = (zipf_keys(u_key) + hb) % R
         iswr = wr
     elif kind == "hotspot_scan":
-        keys = (uniform_keys(u_key, lo=0, hi=max(dw.n_hot * 16, 2))
-                + hb) % R
+        n_hot = _e(dw.n_hot)
+        span = (n_hot * 16).clamp(min=2) if torch.is_tensor(n_hot) \
+            else max(n_hot * 16, 2)
+        keys = (uniform_keys(u_key, lo=0, hi=span) + hb) % R
         iswr = torch.ones_like(wr)
     elif kind == "uniform":
         keys = uniform_keys(u_key)
@@ -228,12 +254,13 @@ def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
         keys = (zipf_keys(u_key) + hb) % R
         iswr = torch.ones_like(wr)
     elif kind == "fit":
-        hot = (uniform_keys(u_key, lo=0, hi=dw.n_hot) + hb) % R
-        rest = uniform_keys(u_key, lo=dw.n_hot)
+        n_hot = _e(dw.n_hot)
+        hot = (uniform_keys(u_key, lo=0, hi=n_hot) + hb) % R
+        rest = uniform_keys(u_key, lo=n_hot)
         keys = torch.where(slot == 0, hot, rest)
         iswr = (slot <= 1) | wr
     elif kind == "tpcc":
-        W = dw.n_warehouses
+        W = _e(dw.n_warehouses)
         wh = uniform_keys(u_key, lo=0, hi=W)
         dist = W + wh * 10 + uniform_keys(u_wr, lo=0, hi=10)
         rest = uniform_keys(u_key, lo=W * 11)
@@ -243,29 +270,52 @@ def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
         raise ValueError(kind)
 
     keys = keys.to(I32)
-    if dw.reads_lock:
+    if torch.is_tensor(dw.reads_lock):
+        iswr = iswr | _e(dw.reads_lock)
+    elif dw.reads_lock:
         iswr = torch.ones_like(iswr)
 
-    if acq_order:
-        keys, iswr = chop.apply_acquisition_order(
-            dw.acq_rank, keys, iswr, dw.txn_len)
+    txn_len = _e(dw.txn_len)
+    if acq_order is not False:
+        sk, sw = chop.apply_acquisition_order(dw.acq_rank, keys, iswr,
+                                              txn_len)
+        if acq_order is True:
+            keys, iswr = sk, sw
+        else:
+            keys = torch.where(_e(acq_order), sk, keys)
+            iswr = torch.where(_e(acq_order), sw, iswr)
 
-    active = slot < dw.txn_len                           # (1, L)
+    active = slot < txn_len                              # (.., 1, L)
     # dup[i] = key i written at an earlier slot (re-entrant lock).
-    eq = keys[:, :, None] == keys[:, None, :]            # (T, L, L)
-    earlier = torch.ones((L, L), dtype=torch.bool, device=dev).tril(-1)[None]
-    dup = torch.any(eq & earlier & iswr[:, None, :], dim=2) & iswr
+    eq = keys[..., :, None] == keys[..., None, :]        # (G, T, L, L)
+    earlier = torch.ones((L, L), dtype=torch.bool, device=dev).tril(-1)
+    dup = torch.any(eq & earlier & iswr[..., None, :], dim=-1) & iswr
     # lastu[i] = no LATER active slot touches key i (== chop.last_use).
-    later = torch.ones((L, L), dtype=torch.bool, device=dev).triu(1)[None]
-    lastu = active & ~torch.any(eq & later & active[:, None, :], dim=2)
+    later = torch.ones((L, L), dtype=torch.bool, device=dev).triu(1)
+    lastu = active & ~torch.any(eq & later & active[..., None, :], dim=-1)
 
-    nops = torch.full((T,), dw.txn_len, dtype=I32, device=dev)
+    nops = torch.zeros((G, T), dtype=I32, device=dev) + dw.txn_len
     return keys, iswr, dup, lastu, nops
 
 
-def will_abort_dyn(seed: int, p_abort: float, thread_ids: torch.Tensor,
+def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
+                thread_ids: torch.Tensor, txn_ctr: torch.Tensor,
+                acq_order: bool = False):
+    """One config's programs: :func:`gen_txn_lanes` at G = 1, with ``dw``
+    the single-lane :class:`DynWorkload` and ``txn_ctr`` (T,). Returns
+    (T, L) ``keys``/``iswr``/``dup``/``lastu`` and (T,) ``nops``."""
+    lanes = dw._replace(zcdf=dw.zcdf[None], acq_rank=dw.acq_rank[None])
+    out = gen_txn_lanes(kind, n_rows, L, lanes, thread_ids, txn_ctr[None],
+                        acq_order=acq_order)
+    return tuple(x[0] for x in out)
+
+
+def will_abort_dyn(seed, p_abort, thread_ids: torch.Tensor,
                    txn_ctr: torch.Tensor) -> torch.Tensor:
-    """Deterministic per-transaction injected-abort decision (Fig. 10)."""
+    """Deterministic per-transaction injected-abort decision (Fig. 10).
+
+    ``seed`` and ``p_abort`` are host values, or (G, 1) tensors (``seed``
+    in int64) against (G, T) counters."""
     zero = torch.zeros_like(thread_ids)
     h = _hash3(thread_ids * 1_000_003 + txn_ctr, zero, zero, seed * 7 + 5)
     return _uniform01(h) < p_abort

@@ -1,6 +1,8 @@
 """Port checks that need the NVIDIA card (marker ``cuda``): the CUDA kernels
-against their plain versions, the engine on the card against its CPU run,
-and the qwen2 serving path through the flash kernel against the plain path.
+against their plain versions, the engine on the card against its CPU run
+(single lanes, packs of lanes and segmented packs), a compacted sweep
+against the sort-then-cut one, and the qwen2 serving path through the flash
+kernel against the plain path.
 This file imports no JAX, so it also runs on a GPU host without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -64,6 +66,70 @@ def test_engine_on_card_equals_cpu(card, proto):
         for f, x, y in zip(getattr(a, part)._fields, getattr(a, part),
                            getattr(b, part)):
             np.testing.assert_array_equal(x, y, err_msg=f"{part}.{f}")
+
+
+def _pack(cases, T=40, L=3, device="cpu"):
+    from repro_torch.core.lock import engine, stack_lanes
+    kind = cases[0].workload.kind
+    stat = engine.StaticShape(kind, T, L, cases[0].workload.n_rows)
+    dps = [engine.split_config(c, pad_threads=T, pad_len=L,
+                               device=device)[1] for c in cases]
+    return stat, stack_lanes(dps), stack_lanes(
+        [engine.init_state_dyn(stat, dp) for dp in dps])
+
+
+@pytest.mark.cuda
+def test_batched_lanes_on_card_equal_cpu(card):
+    """One pack of mixed protocols (p_abort, drain, padded T and L,
+    hot_base != 0) through _run_batch, paused at an iteration budget and
+    resumed, then segmented: the card's lanes equal the CPU's leaf for
+    leaf."""
+    from repro_torch.core.lock import engine
+    wl = dict(kind="zipf", n_rows=256, txn_len=2, write_ratio=0.7,
+              zipf_s=0.9)
+    cases = [EngineConfig(protocol=protocol_params(p), costs=CostModel(),
+                          workload=WorkloadSpec(**wl, hot_base=hb),
+                          n_threads=t, horizon=4_000, p_abort=pa,
+                          drain=dr, attrib=True)
+             for p, t, pa, dr, hb in [("mysql", 40, 0.0, False, 0),
+                                      ("group", 12, 0.05, False, 7),
+                                      ("brook2pl", 33, 0.05, False, 0),
+                                      ("o2", 40, 0.0, True, 0),
+                                      ("bamboo", 20, 0.05, False, 3)]]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        stat, dps, s = _pack(cases, device=dev)
+        s = engine._run_batch(stat, dps._replace(
+            max_iters=np.full(len(cases), 50, np.int32)), s)
+        s = engine._run_batch(stat, dps, s)
+        seg = engine._run_seg_batch(stat, dps, _pack(cases, device=dev)[2],
+                                    [1_000, 2_000, 1_500, 800, 3_000])
+        out[dev] = [state_to_numpy(s), state_to_numpy(seg[0]),
+                    state_to_numpy(seg[1])]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        for x, y in zip(_np_leaves(a), _np_leaves(b)):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+
+
+def _np_leaves(tree):
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in _np_leaves(t)]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_compacted_sweep_equals_sort_then_cut_on_card(card):
+    from repro_torch.sweep import grid, run_sweep
+    wl = WorkloadSpec(kind="hotspot_update", txn_len=2, n_rows=512)
+    pts = (grid(["mysql", "o2", "group", "bamboo", "brook2pl"], wl,
+                [8, 24], horizon=6_000, p_abort=[0.0, 0.05],
+                name_fmt="{protocol}_T{n_threads}_p{p_abort}")
+           + grid("aria", wl, [8, 24], horizon=6_000))
+    a = run_sweep(pts, chunk_size=8, compact=True)
+    b = run_sweep(pts, chunk_size=8, compact=False)
+    for p in pts:
+        assert a[p.name].__dict__ == b[p.name].__dict__, p.name
 
 
 def _flash_inputs(shape, dtype, transposed=False):
