@@ -56,7 +56,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     orderings at the grid's thread counts
   sweep_vs_single   a mixed grid (six protocols x T 8, 40, 64 padded to 64 x
                     p_abort 0, 0.05, aria at each T, one drain lane; R=4096,
-                    horizon 20,000) compacted at width 8, sort-then-cut, and
+                    horizon 10,000, cut from 20,000 for the time limit)
+                    compacted at width 8, sort-then-cut, and
                     in 4 segments (packed run_segment), each lane against its
                     single-lane run at the padded shape: metrics for the
                     sweeps, every leaf for the segmented runs (iters within
@@ -64,7 +65,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     and must be none. On SEGMENT_FAULT_LANES the reference's
                     own segmented run departs from its single-shot run (a
                     fault the port copies), so there the card's segmented
-                    runs are held to the port's CPU runs
+                    runs are held to the port's CPU runs. The single-lane
+                    runs go to SINGLE_LANE_WORKERS processes on the same
+                    card while this process runs the packs, so the packs'
+                    walls are taken beside them
+  governed          run_governed at full width: the engine phase's table and
+                    pool (hotspot update, txn_len 8, R=1,000,000, T=1024,
+                    attribution on), stationary drift, 4 segments over the
+                    engine phase's horizon, one pack of 8 lanes (a fixed
+                    policy per protocol, the queue rule, epsilon-greedy):
+                    each fixed lane equals the engine phase's run of its
+                    protocol field for field (iters within 0..3), every
+                    lane's segments add up and conserve ticks; wall, ms per
+                    packed iteration, the rule and greedy preset timelines
+  serving           serve at full width: the same table and pool saturated
+                    (every request at tick 0, admission wait, 64 credits a
+                    slot, never exhausted), 4 boundaries, the six protocols
+                    as one pack: each lane equals the engine phase's run,
+                    completions equal commits, every response counted
+  adaptive_serving_vs_cpu
+                    small packs on the card and on the CPU, every record
+                    equal: tests/test_adaptive.py's batched-lanes cells
+                    (skew-ramp drift; 15,000 ticks, the test's 30,000 cut)
+                    and an open-load serving pack (Poisson at 0.3, 1 and 3
+                    times capacity, reject and shed, 2 credits a slot so
+                    slots HALT and revive, a queue-rule cell; 10,000 ticks)
+  fig_grids         fig17's quick grid for its wall (mysql, group, brook2pl
+                    x rho 0.01..1.0, T=32, R=4096, 24 boundaries) at 120,000
+                    ticks, cut from the figure's quick 240,000 for the time
+                    limit: the knee row, p50 <= p99 <= p999 <= max. fig15's
+                    skew_ramp does not fit the limit even at 120,000 ticks
+                    (alone: 55,564 packed iterations, 510.6 s on an H100
+                    80GB HBM3 at 700 W); --fig15-horizon runs it alone
   kernels           segment_sums against its plain version at the reference
                     tests' shapes and at the main path's shape, with times
   flash             the flash kernels against their plain versions at the
@@ -82,6 +114,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     forward within 2e-4); at the main path's shape the same
                     bf16 bar, then kernel and SDPA timed in turns (kernel,
                     library, library, kernel), the FMA kernel once in f32
+
+``--fig15-horizon TICKS`` runs only the card check (gpu) and fig15's
+skew_ramp scenario (benchmarks/fig15_adaptive.py: Zipf txn_len 4, R=8192,
+T=64, 12 segments, three fixed protocols, the queue rule, epsilon-greedy)
+through run_governed at that horizon, for its wall, then exits.
 
 The line before the last is the ``kernels`` summary and the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -126,6 +163,12 @@ MUFU_EXP2_PER_CLOCK = 16
 # the bf16 kernel path may lie at most this factor farther from the f32 path
 # than the bf16 plain path does (two draws of the same bf16 rounding)
 BF16_PATH_MARGIN = 1.25
+# fig17's horizon in fig_grids, cut from the figure's quick 240,000 ticks
+# for the time limit: 4,259 packed iterations, 44.7-60.4 s at 120,000
+# (NVIDIA H100 80GB HBM3, 700 W)
+FIG17_HORIZON = 120_000
+# processes that run sweep_vs_single's single-lane runs on the card
+SINGLE_LANE_WORKERS = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -190,14 +233,17 @@ def check_accounting(s, T: int) -> None:
     assert wait == int(tb[:, engine.TB_LOCKWAIT].sum()), "ca/lock_wait"
 
 
-def phase_engine(horizon: int) -> list[dict]:
+def phase_engine(horizon: int) -> dict:
+    """The six protocols on SysBench hotspot update, then hotspot_mix under
+    group. Returns the hotspot-update runs' ``SimResult`` by protocol (the
+    governed and serving phases are held to them)."""
     from repro_torch.core.lock import WorkloadSpec, extract, engine
     T, R = 1024, 1_000_000
     hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
     mix = WorkloadSpec(kind="hotspot_mix", txn_len=8, n_rows=R,
                        zipf_s=0.7)
     runs = [(p, hot) for p in PROTOCOLS] + [("group", mix)]
-    out = []
+    out = {}
     for proto, wl in runs:
         cfg = engine.EngineConfig(
             protocol=engine.protocol_params(proto), costs=engine.CostModel(),
@@ -214,7 +260,8 @@ def phase_engine(horizon: int) -> list[dict]:
                    horizon=horizon, iters=r.iters, commits=r.commits,
                    tps=r.tps, wall_s=wall, ms_per_iter=1e3 * wall / r.iters)
         emit("engine", **row)
-        out.append(row)
+        if wl is hot:
+            out[proto] = r
     return out
 
 
@@ -460,26 +507,76 @@ def _diff(a, b, prefix="") -> list[str]:
 
 # Lanes of sweep_vs_single's grid on which the reference's own 4-segment
 # run departs from its single-shot run beyond its iters caveat (ROADMAP
-# queue 3): an injected abort's cascade pends one iteration while the
-# single-shot run's idle jump reaches the horizon, and a boundary inside
-# that jump fires it. The port reproduces the reference on them (CPU
-# tests), so here their card runs are held to the port's CPU runs instead.
-SEGMENT_FAULT_LANES = ("group_T40_p0.05", "bamboo_T8_p0.05",
-                       "bamboo_T40_p0.05", "drain_group")
+# queue 3), by horizon: an injected abort's cascade pends one iteration
+# while the single-shot run's idle jump reaches the horizon, and a boundary
+# inside that jump fires it. Found by running the reference's run_segment
+# and single-shot loop on the CPU over the whole grid: one lane departs by
+# 10,000 ticks, four by 20,000. The port reproduces the reference on them
+# (CPU tests), so here their card runs are held to the port's CPU runs.
+SEGMENT_FAULT_LANES = {
+    10_000: ("bamboo_T8_p0.05",),
+}
 
 
-def phase_sweep_vs_single(R=4096, horizon=20_000, threads=(8, 40, 64),
+def _single_shape(p, R: int, device: str):
+    """A sweep point's static shape and dynamic config at its bucket's
+    padded shape."""
+    from repro_torch.core.lock import engine, aria
+    from repro_torch.sweep.runner import _bucket_key, _engine_config
+    key = _bucket_key(p, "pow2")
+    stat = engine.StaticShape(p.workload.kind, key[3], key[4], R)
+    if p.protocol == "aria":
+        return stat, aria.split_aria(aria.AriaConfig(
+            p.workload, p.costs, p.n_threads, p.horizon), key[3], key[4],
+            device=device)[1]
+    return stat, engine.split_config(_engine_config(p), key[3], key[4],
+                                      device=device)[1]
+
+
+def _worker_init() -> None:
+    """A single-lane worker: the port on its path, one CPU thread, the card
+    reached before the first run."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    torch.cuda.init()
+    import repro_torch.sweep  # noqa: F401
+
+
+def _single_lane_run(p, R: int, device: str = "cuda"):
+    """One sweep point alone (``engine._run_dyn``, the loop of ``run_sim``,
+    or Aria's) at its bucket's padded shape: its name, metrics and final
+    state as numpy."""
+    from repro_torch.core.lock import engine, aria, extract
+    from repro_torch.core.lock.convert import state_to_numpy
+    stat, dp = _single_shape(p, R, device)
+    if p.protocol == "aria":
+        s = aria._run_dyn(stat, dp)
+        want = aria.extract_aria(p.n_threads, s)
+    else:
+        s = engine._run_dyn(stat, dp, engine.init_state_dyn(stat, dp))
+        want = extract(p.protocol, p.n_threads, s)
+    return p.name, want, state_to_numpy(s)
+
+
+def phase_sweep_vs_single(R=4096, horizon=10_000, threads=(8, 40, 64),
                           width=8, n_seg=4) -> None:
     """A mixed grid run three ways on the card — compacted at ``width``,
     sort-then-cut, and in ``n_seg`` segments (packed ``run_segment``) —
-    against each lane's single-lane run (``engine._run_dyn``, the loop of
-    ``run_sim``, at the bucket's padded shape)."""
+    against each lane's single-lane run (:func:`_single_lane_run`). The
+    horizon was cut from 20,000 to 10,000 ticks for the time limit when the
+    governor and serving phases came in. The single-lane runs go to
+    :data:`SINGLE_LANE_WORKERS` processes on the same card, started first;
+    this process runs the packs meanwhile."""
     import dataclasses as dc
-    from repro_torch.core.lock import WorkloadSpec, engine, aria, extract
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.core.lock import WorkloadSpec, engine, aria
     from repro_torch.core.lock.convert import state_to_numpy
     from repro_torch.sweep import grid, point, run_sweep
-    from repro_torch.sweep.runner import (_bucket_key, _engine_config,
-                                          _pack, run_packed_segment)
+    from repro_torch.sweep.runner import (_engine_config, _pack,
+                                          run_packed_segment)
+    fault_lanes = SEGMENT_FAULT_LANES[horizon]
     wl = WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=R)
     pts = (grid(list(PROTOCOLS), wl, list(threads), horizon=horizon,
                 p_abort=[0.0, 0.05],
@@ -487,82 +584,81 @@ def phase_sweep_vs_single(R=4096, horizon=20_000, threads=(8, 40, 64),
            + grid("aria", wl, list(threads), horizon=horizon)
            + [point("group", wl, threads[1], horizon=horizon, p_abort=0.05,
                     drain=True, name="drain_group")])
-    ways = {"compacted": run_sweep(pts, chunk_size=width, compact=True,
-                                   device="cuda"),
-            "sort_then_cut": run_sweep(pts, chunk_size=width, compact=False,
-                                       device="cuda")}
-    for name, res in ways.items():
-        emit("sweep_vs_single", way=name, points=len(pts),
-             wall_s=res.wall_s, lane_iters=res.lane_iters,
-             repacks=res.n_repacks)
-    t0 = time.perf_counter()
-    singles, metric_diff = {}, []
-    for p in pts:
-        key = _bucket_key(p, "pow2")
-        stat = engine.StaticShape(p.workload.kind, key[3], key[4], R)
-        if p.protocol == "aria":
-            _, dp = aria.split_aria(aria.AriaConfig(
-                p.workload, p.costs, p.n_threads, p.horizon), key[3], key[4],
-                device="cuda")
-            s = aria._run_dyn(stat, dp)
-            want = aria.extract_aria(p.n_threads, s)
-        else:
-            _, dp = engine.split_config(_engine_config(p), key[3], key[4],
-                                        device="cuda")
-            s = engine._run_dyn(stat, dp, engine.init_state_dyn(stat, dp))
-            want = extract(p.protocol, p.n_threads, s)
-        singles[p.name] = (stat, dp, state_to_numpy(s))
+    t_single = time.perf_counter()
+    pool = ProcessPoolExecutor(SINGLE_LANE_WORKERS,
+                               multiprocessing.get_context("spawn"),
+                               initializer=_worker_init)
+    try:
+        runs = [pool.submit(_single_lane_run, p, R) for p in pts]
+        ways = {"compacted": run_sweep(pts, chunk_size=width, compact=True,
+                                       device="cuda"),
+                "sort_then_cut": run_sweep(pts, chunk_size=width,
+                                           compact=False, device="cuda")}
         for name, res in ways.items():
-            got = dc.asdict(res[p.name])
-            metric_diff += [f"{name}:{p.name}.{f}" for f, v in
-                            dc.asdict(want).items() if got[f] != v]
+            emit("sweep_vs_single", way=name, points=len(pts),
+                 wall_s=res.wall_s, lane_iters=res.lane_iters,
+                 repacks=res.n_repacks)
+
+        def untils_of(p, k):
+            stop = (engine.stop_ticks(_engine_config(p))
+                    if p.protocol != "aria" else p.horizon)
+            return horizon * k // n_seg if k < n_seg else stop
+
+        # segmented: packs of `width` lanes per family, n_seg boundaries
+        t0 = time.perf_counter()
+        shapes = {p.name: _single_shape(p, R, "cuda") for p in pts}
+        segmented = {}
+        for fam in ("engine", "aria"):
+            fpts = [p for p in pts
+                    if (p.protocol == "aria") == (fam == "aria")]
+            for lo in range(0, len(fpts), width):
+                chunk = fpts[lo:lo + width]
+                stat = shapes[chunk[0].name][0]
+                dps = [shapes[p.name][1] for p in chunk]
+                if fam == "engine":
+                    states = [engine.init_state_dyn(stat, dp) for dp in dps]
+                    packed = None
+                    for k in range(1, n_seg + 1):
+                        packed, _, g = run_packed_segment(
+                            stat, dps, states,
+                            [untils_of(p, k) for p in chunk], packed=packed)
+                    outs = [engine.take_lane(packed, i) if g > 1 else packed
+                            for i in range(len(chunk))]
+                else:
+                    s = _pack([aria.init_aria_state(stat, "cuda")]
+                              * len(chunk), len(chunk))
+                    for k in range(1, n_seg + 1):
+                        s = aria._run_seg_batch(
+                            stat, _pack(dps, len(chunk)), s,
+                            [untils_of(p, k) for p in chunk])
+                    outs = [engine.take_lane(s, i) for i in range(len(chunk))]
+                for p, out in zip(chunk, outs):
+                    segmented[p.name] = state_to_numpy(out)
+        emit("sweep_vs_single", way="segmented", segments=n_seg,
+             points=len(pts), wall_s=time.perf_counter() - t0)
+        singles = {}
+        for run in runs:
+            name, want, state = run.result()
+            singles[name] = (want, state)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     emit("sweep_vs_single", way="single_lane", points=len(pts),
-         wall_s=time.perf_counter() - t0)
-
-    def untils_of(p, k):
-        stop = (engine.stop_ticks(_engine_config(p)) if p.protocol != "aria"
-                else p.horizon)
-        return horizon * k // n_seg if k < n_seg else stop
-
-    # segmented: packs of `width` lanes per family, n_seg boundaries each
-    t0 = time.perf_counter()
-    segmented = {}
-    for fam in ("engine", "aria"):
-        fpts = [p for p in pts if (p.protocol == "aria") == (fam == "aria")]
-        for lo in range(0, len(fpts), width):
-            chunk = fpts[lo:lo + width]
-            stat = singles[chunk[0].name][0]
-            dps = [singles[p.name][1] for p in chunk]
-            if fam == "engine":
-                states = [engine.init_state_dyn(stat, dp) for dp in dps]
-                packed = None
-                for k in range(1, n_seg + 1):
-                    packed, _, g = run_packed_segment(
-                        stat, dps, states, [untils_of(p, k) for p in chunk],
-                        packed=packed)
-                outs = [engine.take_lane(packed, i) if g > 1 else packed
-                        for i in range(len(chunk))]
-            else:
-                s = _pack([aria.init_aria_state(stat, "cuda")] * len(chunk),
-                          len(chunk))
-                for k in range(1, n_seg + 1):
-                    s = aria._run_seg_batch(stat, _pack(dps, len(chunk)), s,
-                                            [untils_of(p, k) for p in chunk])
-                outs = [engine.take_lane(s, i) for i in range(len(chunk))]
-            for p, out in zip(chunk, outs):
-                segmented[p.name] = state_to_numpy(out)
-    emit("sweep_vs_single", way="segmented", segments=n_seg, points=len(pts),
-         wall_s=time.perf_counter() - t0)
+         workers=SINGLE_LANE_WORKERS,
+         wall_s=time.perf_counter() - t_single)
+    metric_diff = [f"{name}:{p.name}.{f}"
+                   for p in pts for name, res in ways.items()
+                   for f, v in dc.asdict(singles[p.name][0]).items()
+                   if dc.asdict(res[p.name])[f] != v]
     seg_diff, fault_diff = [], {}
     for p in pts:
-        want, got = singles[p.name][2], segmented[p.name]
+        want, got = singles[p.name][1], segmented[p.name]
         diff = _diff(want, got)
         if p.protocol != "aria" and diff == ["g.iters"]:
             # the reference's caveat: one extra iteration per boundary
             # inside a fully idle stall window
             if 0 <= int(got.g.iters) - int(want.g.iters) <= n_seg - 1:
                 diff = []
-        if p.name in SEGMENT_FAULT_LANES:
+        if p.name in fault_lanes:
             fault_diff[p.name] = diff
         else:
             seg_diff += [f"{p.name}.{d}" for d in diff]
@@ -570,11 +666,9 @@ def phase_sweep_vs_single(R=4096, horizon=20_000, threads=(8, 40, 64),
     # port's segmented run of the same lane on the CPU
     cpu_diff = []
     for p in pts:
-        if p.name not in SEGMENT_FAULT_LANES:
+        if p.name not in fault_lanes:
             continue
-        stat = singles[p.name][0]
-        _, dp = engine.split_config(_engine_config(p), stat.n_threads,
-                                    stat.txn_len, device="cpu")
+        stat, dp = _single_shape(p, R, "cpu")
         s = engine.init_state_dyn(stat, dp)
         for k in range(1, n_seg + 1):
             s, _ = engine.run_segment(stat, dp, s, untils_of(p, k))
@@ -586,6 +680,295 @@ def phase_sweep_vs_single(R=4096, horizon=20_000, threads=(8, 40, 64),
          reference_fault_lanes_card_vs_cpu=cpu_diff)
     assert not metric_diff and not seg_diff and not cpu_diff, \
         (metric_diff, seg_diff, cpu_diff)
+
+
+# a governed or served lane's iterations may exceed its single-shot run's by
+# at most this (one per inner boundary inside an idle window: 4 segments)
+ITERS_SLACK = 3
+
+
+def _lane_vs_single(got, want) -> tuple[list[str], int]:
+    """Differing ``SimResult`` fields (label and ``iters`` aside) and the
+    ``iters`` difference of a segmented lane against a single-shot run."""
+    g, w = dataclasses.asdict(got), dataclasses.asdict(want)
+    diff = [f for f in w if f not in ("protocol", "iters") and g[f] != w[f]]
+    return diff, g["iters"] - w["iters"]
+
+
+def _segment_accounting(res, name: str, pad_t: int) -> None:
+    """The segments of one lane add up: commits to the total, windows to
+    the run's length, and every window's ticks are conserved."""
+    segs = res.segments[name]
+    assert sum(s["commits"] for s in segs) == res[name].commits, name
+    assert [s["t0"] for s in segs] == [0] + [s["t1"] for s in segs[:-1]], \
+        ("windows", name)
+    for s in segs:
+        assert sum(s["breakdown"].values()) == pad_t * (s["t1"] - s["t0"]), \
+            ("conservation", name, s["index"])
+
+
+def _packed_ms(res, wall: float) -> dict:
+    """Packed iterations of a governed or served run (each bucket's
+    lane-iterations over its pack width, the pow2 width of its lane groups)
+    and the wall per one."""
+    packed = sum(b.lane_iters / (1 << (-(-b.n_points // b.n_chunks) - 1)
+                                 .bit_length()) for b in res.buckets)
+    return dict(lane_iters=res.lane_iters, packed_iters=packed,
+                ms_per_packed_iter=1e3 * wall / max(packed, 1))
+
+
+def phase_governed(single: dict, horizon: int, n_seg: int = 4,
+                   T: int = 1024, R: int = 1_000_000) -> dict:
+    """``run_governed`` at full width: the engine phase's table and pool
+    (hotspot update, txn_len 8, attribution on) under stationary drift in
+    ``n_seg`` segments over the engine phase's horizon, one pack of 8 lanes
+    (a FixedPolicy per protocol, the queue rule, epsilon-greedy). Each fixed
+    lane equals the engine phase's single-shot run of its protocol, field
+    for field, ``iters`` within 0..3; every lane's segments add up."""
+    from repro_torch.adaptive import (EpsilonGreedyPolicy, FixedPolicy,
+                                      GovernorCell, QueueRulePolicy,
+                                      preset_timeline, run_governed)
+    from repro_torch.core.lock import WorkloadSpec, stationary
+    drift = stationary(WorkloadSpec(kind="hotspot_update", txn_len=8,
+                                    n_rows=R), n_seg)
+    cells = ([GovernorCell(f"fixed_{p}", FixedPolicy(p), drift, T,
+                           attrib=True) for p in PROTOCOLS]
+             + [GovernorCell("rule", QueueRulePolicy(), drift, T,
+                             attrib=True),
+                GovernorCell("greedy", EpsilonGreedyPolicy(), drift, T,
+                             attrib=True)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_governed(cells, horizon=horizon, n_segments=n_seg,
+                       device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = {}
+    for p in PROTOCOLS:
+        diff, d_iters = _lane_vs_single(res[f"fixed_{p}"], single[p])
+        emit("governed", lane=f"fixed_{p}", commits=res[f"fixed_{p}"].commits,
+             iters=res[f"fixed_{p}"].iters, single_iters=single[p].iters,
+             differing_fields=diff)
+        if diff or not 0 <= d_iters <= ITERS_SLACK:
+            bad[p] = (diff, d_iters)
+    for c in cells:
+        _segment_accounting(res, c.name, T)
+    row = dict(lanes=len(cells), threads=T, rows=R, horizon=horizon,
+               segments=n_seg, wall_s=wall, wall_s_per_segment=wall / n_seg,
+               **_packed_ms(res, wall),
+               rule_timeline=preset_timeline(res, "rule"),
+               greedy_timeline=preset_timeline(res, "greedy"),
+               commits={c.name: res[c.name].commits for c in cells},
+               n_compiles=res.n_compiles)
+    emit("governed", **row)
+    assert not bad, ("governed lanes vs single-shot runs", bad)
+    return row
+
+
+def phase_serving(single: dict, horizon: int, n_bounds: int = 4,
+                  T: int = 1024, R: int = 1_000_000) -> dict:
+    """``serve`` at full width: the engine phase's table and pool under a
+    saturating schedule (every request at tick 0, admission ``wait``, 64
+    credits a slot, which no slot exhausts), ``n_bounds`` boundaries, the
+    six protocols as one pack. Each lane equals the engine phase's run of
+    its protocol as in the governed phase; completions equal commits
+    (``p_abort`` 0) and the response histogram holds every completion
+    (``serve`` asserts it per cell; the raw responses are counted here)."""
+    from repro_torch.core.lock import WorkloadSpec
+    from repro_torch.serving import ServeCell, saturating, serve
+    hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
+    credits = 64
+    sched = saturating(T * credits, horizon)
+    cells = [ServeCell(name=p, schedule=sched, workload=hot, n_threads=T,
+                       preset=p, admission="wait", max_outstanding=credits,
+                       attrib=True) for p in PROTOCOLS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = serve(cells, seg_ticks=horizon // n_bounds, keep_responses=True,
+                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = {}
+    for p in PROTOCOLS:
+        s = res.serving[p]
+        diff, d_iters = _lane_vs_single(res[p], single[p])
+        emit("serving", lane=p, completed=s.completed,
+             commits=res[p].commits, iters=res[p].iters,
+             single_iters=single[p].iters, p50_us=s.p50_us, p99_us=s.p99_us,
+             max_us=s.max_us, differing_fields=diff)
+        if diff or not 0 <= d_iters <= ITERS_SLACK:
+            bad[p] = (diff, d_iters)
+        assert s.completed == res[p].commits, (p, s.completed)
+        assert len(res.responses[p]) == s.completed, p
+        assert s.arrived == T * credits and s.in_flight_end > 0, p
+        _segment_accounting(res, p, T)
+    row = dict(lanes=len(cells), threads=T, rows=R, horizon=horizon,
+               boundaries=n_bounds, wall_s=wall,
+               wall_s_per_segment=wall / n_bounds, **_packed_ms(res, wall),
+               completed={p: res.serving[p].completed for p in PROTOCOLS},
+               n_compiles=res.n_compiles)
+    emit("serving", **row)
+    assert not bad, ("served lanes vs single-shot runs", bad)
+    return row
+
+
+def phase_adaptive_serving_vs_cpu(horizon: int = 15_000,
+                                  serve_horizon: int = 10_000) -> None:
+    """Small packs on the card and on the CPU, every record equal: the
+    governed cells of tests/test_adaptive.py's batched-lanes case (skew-ramp
+    drift, the queue rule and two fixed policies) and an open-load serving
+    pack (Poisson at 0.3, 1 and 3 times the pool's capacity with ``reject``
+    and ``shed`` admission, 2 credits a slot, so slots HALT and are
+    revived, plus a queue-rule cell). Horizons 15,000 (the test's 30,000)
+    and 10,000 ticks, for the time limit."""
+    from repro_torch.adaptive import (FixedPolicy, GovernorCell,
+                                      QueueRulePolicy, run_governed)
+    from repro_torch.core.lock import CostModel, WorkloadSpec, skew_ramp
+    from repro_torch.serving import ServeCell, poisson, serve, service_ticks
+    drift = skew_ramp(WorkloadSpec(kind="zipf", txn_len=2, n_rows=256,
+                                   zipf_s=0.9), 3, lo=0.3, hi=1.1)
+
+    def gov_cells():
+        return [GovernorCell("r", QueueRulePolicy(), drift, 8),
+                GovernorCell("m", FixedPolicy("mysql"), drift, 12),
+                GovernorCell("g", FixedPolicy("group"), drift, 8)]
+
+    w = WorkloadSpec(kind="uniform", txn_len=2, n_rows=512, write_ratio=1.0)
+    T = 8
+    cap = T / service_ticks(w, CostModel(), "o2")
+
+    def srv_cells():
+        cells = [ServeCell(name=f"{adm}_{f}", workload=w, n_threads=T,
+                           schedule=poisson(f * cap, serve_horizon,
+                                            seed=i),
+                           preset="o2", queue_cap=8, admission=adm,
+                           max_outstanding=2)
+                 for i, (adm, f) in enumerate(
+                     (a, f) for a in ("reject", "shed")
+                     for f in (0.3, 1.0, 3.0))]
+        return cells + [ServeCell(
+            name="rule", workload=w, n_threads=T,
+            schedule=poisson(cap, serve_horizon, seed=9), preset="o2",
+            policy=QueueRulePolicy(), queue_cap=8, admission="reject",
+            max_outstanding=2)]
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        gov = run_governed(gov_cells(), horizon=horizon, n_segments=3,
+                           chunk_size=4, device=dev)
+        srv = serve(srv_cells(), seg_ticks=serve_horizon // 8,
+                    chunk_size=8, device=dev)
+        runs[dev] = (gov, srv, time.perf_counter() - t0)
+    (g_a, s_a, wall_a), (g_b, s_b, wall_b) = runs["cuda"], runs["cpu"]
+    diff = []
+    for n in g_a.names():
+        if (dataclasses.asdict(g_a[n]) != dataclasses.asdict(g_b[n])
+                or g_a.segments[n] != g_b.segments[n]):
+            diff.append(f"governed:{n}")
+    for n in s_a.names():
+        if (dataclasses.asdict(s_a.serving[n])
+                != dataclasses.asdict(s_b.serving[n])
+                or s_a.segments[n] != s_b.segments[n]
+                or dataclasses.asdict(s_a[n]) != dataclasses.asdict(s_b[n])):
+            diff.append(f"serving:{n}")
+    revived = {n: s_a.serving[n].completed for n in s_a.names()}
+    emit("adaptive_serving_vs_cpu", governed_cells=g_a.names(),
+         serving_cells=s_a.names(), card_wall_s=wall_a, cpu_wall_s=wall_b,
+         completed=revived, rejected={n: s_a.serving[n].rejected
+                                      for n in s_a.names()},
+         shed={n: s_a.serving[n].shed for n in s_a.names()},
+         rule_timeline=[r["preset"] for r in s_a.segments["rule"]],
+         differing=diff)
+    assert not diff, diff
+    # more completions than a slot's credits can carry: slots were revived
+    assert all(c > 2 * T for c in revived.values()), revived
+
+
+def phase_fig15(horizon: int) -> dict:
+    """fig15's ``skew_ramp`` scenario (benchmarks/fig15_adaptive.py, quick:
+    Zipf ``txn_len`` 4, R=8192, T=64, 12 segments, the lock-manager-bound
+    costs, three fixed protocols + rule + greedy) through ``run_governed``
+    on the card at ``horizon`` ticks, for its wall."""
+    from repro_torch.adaptive import (EpsilonGreedyPolicy, FixedPolicy,
+                                      GovernorCell, QueueRulePolicy,
+                                      preset_timeline, run_governed)
+    from repro_torch.core.lock import CostModel, WorkloadSpec, skew_ramp
+    cm = CostModel(op_exec=20, commit_base=30)
+    n_seg, fixed = 12, ("mysql", "o2", "group")
+    drift = skew_ramp(WorkloadSpec(kind="zipf", txn_len=4, n_rows=8192),
+                      n_seg, lo=0.3, hi=0.7)
+    cells = [GovernorCell(f"fig15_skew_ramp_{p}", FixedPolicy(p), drift, 64,
+                          costs=cm) for p in fixed]
+    cells += [GovernorCell("fig15_skew_ramp_rule", QueueRulePolicy(), drift,
+                           64, costs=cm),
+              GovernorCell("fig15_skew_ramp_greedy", EpsilonGreedyPolicy(),
+                           drift, 64, costs=cm)]
+    t0 = time.perf_counter()
+    res = run_governed(cells, horizon=horizon, n_segments=n_seg,
+                       device="cuda")
+    wall = time.perf_counter() - t0
+    best_name, best = max(((p, res[f"fig15_skew_ramp_{p}"].commits)
+                           for p in fixed), key=lambda kv: kv[1])
+    for c in cells:
+        _segment_accounting(res, c.name, 64)
+    out = dict(
+        scenario="skew_ramp", horizon=horizon, segments=n_seg,
+        wall_s=wall, **_packed_ms(res, wall),
+        iters={c.name: res[c.name].iters for c in cells},
+        commits={c.name: res[c.name].commits for c in cells},
+        best_fixed=best_name,
+        rule_vs_best=res["fig15_skew_ramp_rule"].commits / max(best, 1),
+        greedy_vs_best=res["fig15_skew_ramp_greedy"].commits / max(best, 1),
+        rule_timeline=preset_timeline(res, "fig15_skew_ramp_rule"),
+        greedy_timeline=preset_timeline(res, "fig15_skew_ramp_greedy"))
+    emit("fig15", **out)
+    return out
+
+
+def phase_fig_grids(fig17_horizon: int) -> dict:
+    """fig17's quick grid (benchmarks/fig17_serving.py: mysql, group,
+    brook2pl x rho 0.01, 0.05, 0.25, 1.0 of the uncontended mysql capacity;
+    T=32, R=4096, Poisson seed 17, queue_cap 8T ``reject``, SLA 2,000 us, 24
+    boundaries) at :data:`FIG17_HORIZON`, for its wall."""
+    from repro_torch.core.lock import CostModel, WorkloadSpec, TICKS_PER_SEC
+    from repro_torch.serving import (ServeCell, poisson, pool_capacity_tps,
+                                     serve)
+    hot = WorkloadSpec(kind="hotspot_update", txn_len=2, n_rows=4096)
+    T, seg = 32, fig17_horizon // 24
+    rhos, protos = (0.01, 0.05, 0.25, 1.0), ("mysql", "group", "brook2pl")
+    cap = pool_capacity_tps(hot, CostModel(), T, "mysql")
+    cells = []
+    for proto in protos:
+        for rho in rhos:
+            rate = rho * cap / TICKS_PER_SEC
+            cells.append(ServeCell(
+                name=f"fig17_{proto}_rho{rho}",
+                schedule=poisson(rate, fig17_horizon, seed=17),
+                workload=hot, n_threads=T, preset=proto,
+                queue_cap=8 * T, admission="reject",
+                max_outstanding=max(8, int(2 * seg * rate / T) + 1),
+                sla_us=2_000.0))
+    t0 = time.perf_counter()
+    res = serve(cells, seg_ticks=seg, device="cuda")
+    wall = time.perf_counter() - t0
+    for c in cells:
+        s = res.serving[c.name]
+        emit("fig_grids", figure="fig17", cell=c.name,
+             offered_tps=s.offered_tps, goodput_tps=s.goodput_tps,
+             p50_us=s.p50_us, p99_us=s.p99_us, p999_us=s.p999_us,
+             max_us=s.max_us, sla_miss_frac=s.sla_miss_frac,
+             rejected=s.rejected, iters=res[c.name].iters)
+        assert s.p50_us <= s.p99_us <= s.p999_us <= s.max_us, c.name
+        assert s.arrived == (s.rejected + s.shed + s.qlen_end
+                             + s.completed + s.in_flight_end), c.name
+    knees = {p: max(res.serving[f"fig17_{p}_rho{r}"].goodput_tps
+                    for r in rhos) for p in protos}
+    out = dict(horizon=fig17_horizon, boundaries=24, wall_s=wall,
+               **_packed_ms(res, wall), knee_tps=knees,
+               best=max(knees, key=knees.get))
+    emit("fig_grids", figure="fig17", **out)
+    return out
 
 
 def phase_kernels(inputs, launches: int, rates) -> dict:
@@ -929,6 +1312,9 @@ def main() -> int:
     ap.add_argument("--sweep-horizon", type=int, default=120_000,
                     help="horizon of the sweep phase's Figure 8 grid, in "
                          "ticks (cut from fig08's quick 200,000)")
+    ap.add_argument("--fig15-horizon", type=int, default=0,
+                    help="run only fig15's skew_ramp scenario at this "
+                         "horizon (ticks) on the card, then exit")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the model's weights and inputs")
     args = ap.parse_args()
@@ -964,13 +1350,17 @@ def main() -> int:
 
     phase_gpu()
     name = torch.cuda.get_device_name(0)
+    if args.fig15_horizon:
+        phase_fig15(args.fig15_horizon)
+        emit("done", wall_s=time.perf_counter() - t_start)
+        return 0
     ptxas = phase_build([kernel, flash_kernel, kernel_sm90])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
     # kernel launch counts are zeroed right before and read right after
     zero_counts()
-    phase_engine(args.horizon)
+    single = phase_engine(args.horizon)
     lap("engine")
     inputs = kernel_bench_inputs()
     phase_group_apply(inputs)
@@ -1012,6 +1402,25 @@ def main() -> int:
     lap("sweep_vs_single")
     emit("sweep_path", launches={"segment_sums": segment_sums.launches,
                                  "flash_attention": flash_attention.launches})
+
+    # the governor and the serving layer ride the segmented engine: no TPU
+    # kernel lies on these paths either, so their counts stay at 0
+    zero_counts()
+    phase_governed(single, args.horizon)
+    lap("governed")
+    emit("governed_path", launches={
+        "segment_sums": segment_sums.launches,
+        "flash_attention": flash_attention.launches})
+    zero_counts()
+    phase_serving(single, args.horizon)
+    lap("serving")
+    phase_adaptive_serving_vs_cpu()
+    lap("adaptive_serving_vs_cpu")
+    phase_fig_grids(FIG17_HORIZON)
+    lap("fig_grids")
+    emit("serving_path", launches={
+        "segment_sums": segment_sums.launches,
+        "flash_attention": flash_attention.launches})
     row = phase_kernels(inputs, launches, card_rates(name))
     lap("kernels")
     flash_row = phase_flash(cfg, params, args.seed, flash_launches, by_route,

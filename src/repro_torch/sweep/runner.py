@@ -254,6 +254,24 @@ def run_packed_segment(stat, dps, states, untils, *, shard: bool = False,
     return out, snaps, g
 
 
+def to_host(tree):
+    """A copy on the host of a tree of tensors (NamedTuples and tuples of
+    them, e.g. a pack's ``Globals`` and its snapshots): one non-blocking
+    copy a leaf, then one wait for the card. This is what the segmented
+    runners read at each boundary, once per pack rather than once per
+    lane."""
+    def copy(x):
+        if isinstance(x, tuple):
+            parts = [copy(y) for y in x]
+            return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+        return x.to("cpu", non_blocking=True, copy=True)
+
+    out = copy(tree)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # compaction scheduler
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Port checks that need the NVIDIA card (marker ``cuda``): the CUDA kernels
 against their plain versions, the engine on the card against its CPU run
 (single lanes, packs of lanes and segmented packs), a compacted sweep
-against the sort-then-cut one, and the qwen2 serving path through the flash
+against the sort-then-cut one, a governed pack and an open-load serving
+pack against their CPU runs, and the qwen2 serving path through the flash
 kernel against the plain path.
 This file imports no JAX, so it also runs on a GPU host without it:
 
@@ -130,6 +131,70 @@ def test_compacted_sweep_equals_sort_then_cut_on_card(card):
     b = run_sweep(pts, chunk_size=8, compact=False)
     for p in pts:
         assert a[p.name].__dict__ == b[p.name].__dict__, p.name
+
+
+@pytest.mark.cuda
+def test_governed_pack_on_card_equals_cpu(card):
+    """A governed pack (skew-ramp drift, the queue rule, epsilon-greedy and
+    fixed policies, attribution on) on the card equals its CPU run: every
+    metric and every segment record."""
+    import dataclasses
+    from repro_torch.adaptive import (EpsilonGreedyPolicy, FixedPolicy,
+                                      GovernorCell, QueueRulePolicy,
+                                      run_governed)
+    from repro_torch.core.lock import skew_ramp
+    drift = skew_ramp(WorkloadSpec(kind="zipf", txn_len=2, n_rows=256,
+                                   zipf_s=0.9), 4, lo=0.3, hi=1.1)
+
+    def cells():
+        return [GovernorCell("r", QueueRulePolicy(), drift, 8, attrib=True),
+                GovernorCell("e", EpsilonGreedyPolicy(), drift, 24,
+                             attrib=True),
+                GovernorCell("m", FixedPolicy("mysql"), drift, 12,
+                             p_abort=0.05, attrib=True),
+                GovernorCell("b", FixedPolicy("brook_guard"), drift, 8)]
+    a = run_governed(cells(), horizon=12_000, n_segments=4, device="cuda")
+    b = run_governed(cells(), horizon=12_000, n_segments=4, chunk_size=4,
+                     device="cpu")
+    for c in cells():
+        assert dataclasses.asdict(a[c.name]) == dataclasses.asdict(
+            b[c.name]), c.name
+        assert a.segments[c.name] == b.segments[c.name], c.name
+
+
+@pytest.mark.cuda
+def test_open_load_serving_on_card_equals_cpu(card):
+    """An open-load serving pack (Poisson at several loads, reject and shed
+    admission, one credit a slot so slots HALT and are revived, one
+    queue-rule cell) on the card equals its CPU run: every result field,
+    boundary record and response."""
+    import dataclasses
+    from repro_torch.adaptive import QueueRulePolicy
+    from repro_torch.serving import ServeCell, poisson, serve
+    wl = WorkloadSpec(kind="uniform", txn_len=2, n_rows=512,
+                      write_ratio=1.0)
+
+    def cells():
+        out = [ServeCell(name=f"{adm}_{rate}", workload=wl, n_threads=8,
+                         schedule=poisson(rate, 10_000, seed=i),
+                         preset="o2", queue_cap=6, admission=adm,
+                         max_outstanding=1, sla_us=300.0)
+               for i, (adm, rate) in enumerate(
+                   (a, r) for a in ("reject", "shed")
+                   for r in (0.01, 0.04, 0.2))]
+        return out + [ServeCell(name="rule", workload=wl, n_threads=8,
+                                schedule=poisson(0.04, 10_000, seed=9),
+                                preset="o2", policy=QueueRulePolicy(),
+                                admission="wait", max_outstanding=2)]
+    a = serve(cells(), seg_ticks=1_250, keep_responses=True, device="cuda")
+    b = serve(cells(), seg_ticks=1_250, keep_responses=True, chunk_size=8,
+              device="cpu")
+    for c in cells():
+        assert dataclasses.asdict(a.serving[c.name]) == dataclasses.asdict(
+            b.serving[c.name]), c.name
+        assert a.segments[c.name] == b.segments[c.name], c.name
+    assert a.responses == b.responses
+    assert all(a.serving[c.name].completed > 8 for c in cells())
 
 
 def _flash_inputs(shape, dtype, transposed=False):

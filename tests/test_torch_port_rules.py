@@ -72,6 +72,22 @@ def test_default_device_needs_cuda(no_cuda):
         flash_attention(q, q, q)
     logits, _ = prefill(params, cfg, tokens=tokens, device="cpu")
     assert logits.shape == (1, 1, cfg.padded_vocab)
+    # the governor and the serving layer
+    from repro_torch.adaptive import FixedPolicy, GovernorCell, run_governed
+    from repro_torch.core.lock import stationary
+    from repro_torch.serving import ServeCell, saturating, serve
+    wl = WorkloadSpec(n_rows=64)
+    gcell = GovernorCell("g", FixedPolicy("group"), stationary(wl, 2), 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_governed([gcell], horizon=200, n_segments=2)
+    scell = ServeCell(name="s", schedule=saturating(8, 200), workload=wl,
+                      n_threads=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve([scell], seg_ticks=100)
+    assert run_governed([gcell], horizon=200, n_segments=2,
+                        device="cpu").segments["g"][-1]["t1"] == 200
+    assert serve([scell], seg_ticks=100,
+                 device="cpu").serving["s"].arrived == 8
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
