@@ -37,7 +37,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     100,000 ticks, cut from the reference test's 400,000),
                     each group of runs as one pack of lanes
   engine_vs_cpu     per protocol, one config on the card and on the CPU:
-                    every SimState leaf must be equal (horizon 10,000)
+                    every SimState leaf must be equal (horizon 10,000).
+                    engine_invariants' two packs and engine_vs_cpu's CPU
+                    runs go to CHECK_WORKERS processes while this one runs
+                    engine_vs_cpu's card runs
   batch_width       one pack of hotspot_update at full width (txn_len 8,
                     R=1,000,000, T=1024, the six protocols cycled over the
                     lanes, attribution on) through engine._run_batch for 200
@@ -97,6 +100,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     skew_ramp does not fit the limit even at 120,000 ticks
                     (alone: 55,564 packed iterations, 510.6 s on an H100
                     80GB HBM3 at 700 W); --fig15-horizon runs it alone
+  trace             traced runs at the engine phase's full width and horizon
+                    (hotspot update, txn_len 8, R=1,000,000, T=1024,
+                    attribution on) for mysql, o2, bamboo and brook2pl, the
+                    buffer sized for 8 T events an iteration: each run's
+                    metrics equal the engine phase's untraced run (iters
+                    included), nothing dropped, commit and abort events equal
+                    the counters, time-ordered, resolved waits within the
+                    lock-wait bin, certified serializable; traced ms per
+                    iteration beside the untraced; o2 untraced and traced in
+                    turns (untraced, traced, traced, untraced) with the
+                    torch calls per iteration of each. One trace_on=False
+                    mysql run equals the untraced run and stores nothing
+  trace_vs_cpu      the certifier CLI's hotspot_update workload at seed 1
+                    (T=16, R=256, txn_len 4, 40,000 ticks, p_abort 0.05, the
+                    CLI's timeouts), six protocols traced on the card and on
+                    the CPU, the twelve runs in CHECK_WORKERS processes:
+                    events and Chrome-trace JSON equal, every card trace
+                    certified
+  prof              profile_step at full width for group and brook2pl
+                    (n_iters 32, best of 3): the ranked stage table and the
+                    CSV row, and the torch calls each ablation removes from
+                    an iteration; for group's full step, the device-busy share
+                    of a profiled window (CUDA kernel time from
+                    torch.profiler over the window's wall, and over the
+                    unprofiled wall) and the device time each ablation
+                    removes; kernel launch counts around the three phases
+                    stay 0 (no kernel lies on this path)
   kernels           segment_sums against its plain version at the reference
                     tests' shapes and at the main path's shape, with times
   flash             the flash kernels against their plain versions at the
@@ -169,6 +199,12 @@ BF16_PATH_MARGIN = 1.25
 FIG17_HORIZON = 120_000
 # processes that run sweep_vs_single's single-lane runs on the card
 SINGLE_LANE_WORKERS = 4
+# processes beside the main one in engine_invariants + engine_vs_cpu (the
+# two packs on the card, the CPU half of engine_vs_cpu) and in trace_vs_cpu
+# (both halves)
+CHECK_WORKERS = 4
+# engine_invariants' oracle pack: the protocols with an analytic model
+ORACLE_PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo")
 
 
 def emit(phase: str, **fields) -> None:
@@ -233,17 +269,18 @@ def check_accounting(s, T: int) -> None:
     assert wait == int(tb[:, engine.TB_LOCKWAIT].sum()), "ca/lock_wait"
 
 
-def phase_engine(horizon: int) -> dict:
+def phase_engine(horizon: int) -> tuple[dict, dict]:
     """The six protocols on SysBench hotspot update, then hotspot_mix under
     group. Returns the hotspot-update runs' ``SimResult`` by protocol (the
-    governed and serving phases are held to them)."""
+    governed, serving and trace phases are held to them) and their ms per
+    iteration."""
     from repro_torch.core.lock import WorkloadSpec, extract, engine
     T, R = 1024, 1_000_000
     hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
     mix = WorkloadSpec(kind="hotspot_mix", txn_len=8, n_rows=R,
                        zipf_s=0.7)
     runs = [(p, hot) for p in PROTOCOLS] + [("group", mix)]
-    out = {}
+    out, ms = {}, {}
     for proto, wl in runs:
         cfg = engine.EngineConfig(
             protocol=engine.protocol_params(proto), costs=engine.CostModel(),
@@ -262,7 +299,8 @@ def phase_engine(horizon: int) -> dict:
         emit("engine", **row)
         if wl is hot:
             out[proto] = r
-    return out
+            ms[proto] = row["ms_per_iter"]
+    return out, ms
 
 
 def kernel_bench_inputs(V=50_000, D=512, N=262_144, s=1.2):
@@ -298,32 +336,44 @@ def phase_group_apply(inputs) -> None:
          rtol=1e-4, atol=1e-4, oracle="grouped_apply_ref in f64")
 
 
-def phase_engine_invariants() -> None:
-    """The drain invariants (six protocols) and the analytic oracle (five)
-    at their full depth, each group run as one pack through
+def _invariant_pack(check: str):
+    """One of engine_invariants' packs at its full depth through
     ``engine._run_batch`` (every lane equals its single-lane run; see
-    sweep_vs_single)."""
+    sweep_vs_single): ``drain`` (six protocols) or ``oracle`` (five). Its
+    final state as numpy."""
     from repro_torch.core.lock import (WorkloadSpec, CostModel, engine,
-                                       protocol_params, stack_lanes, HALT)
+                                       protocol_params, stack_lanes)
+    from repro_torch.core.lock.convert import state_to_numpy
     from repro_torch.core.lock.engine import EngineConfig
+    if check == "drain":
+        fit = WorkloadSpec(kind="fit", txn_len=2, n_rows=4096, n_hot=2,
+                           seed=1)
+        cfgs = [EngineConfig(protocol=protocol_params(proto),
+                             costs=CostModel(), workload=fit, n_threads=64,
+                             horizon=20_000, p_abort=0.1, drain=True,
+                             max_iters=400_000) for proto in PROTOCOLS]
+    else:
+        hot = WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=512)
+        cfgs = [EngineConfig(protocol=protocol_params(proto),
+                             costs=CostModel(), workload=hot, n_threads=128,
+                             horizon=100_000) for proto in ORACLE_PROTOCOLS]
+    parts = [engine.split_config(c, device="cuda") for c in cfgs]
+    stat = parts[0][0]
+    return state_to_numpy(engine._run_batch(
+        stat, stack_lanes([dp for _, dp in parts]),
+        stack_lanes([engine.init_state_dyn(stat, dp) for _, dp in parts])))
+
+
+def phase_engine_invariants(packs: dict) -> None:
+    """The drain invariants and the analytic-oracle agreement on
+    :func:`_invariant_pack`'s results (``packs``: futures by check)."""
+    from repro_torch.core.lock import CostModel, HALT
     from repro_torch.core.lock.metrics import extract_globals
     from repro_torch.core.lock.ref_engine import predicted_tps
-
-    def pack(cfgs):
-        parts = [engine.split_config(c, device="cuda") for c in cfgs]
-        stat = parts[0][0]
-        return engine._run_batch(
-            stat, stack_lanes([dp for _, dp in parts]),
-            stack_lanes([engine.init_state_dyn(stat, dp) for _, dp in parts]))
-
-    fit = WorkloadSpec(kind="fit", txn_len=2, n_rows=4096, n_hot=2, seed=1)
-    s = pack([EngineConfig(protocol=protocol_params(proto),
-                           costs=CostModel(), workload=fit, n_threads=64,
-                           horizon=20_000, p_abort=0.1, drain=True,
-                           max_iters=400_000) for proto in PROTOCOLS])
+    s = packs["drain"].result()
     for i, proto in enumerate(PROTOCOLS):
-        leftover = int((s.rows.applied_val[i] - s.rows.committed_val[i])
-                       .abs().sum())
+        leftover = int(np.abs(s.rows.applied_val[i].astype(np.int64)
+                              - s.rows.committed_val[i]).sum())
         ok = (bool((s.th.phase[i] == HALT).all())
               and bool((s.th.ticket[i] < 0).all()) and leftover == 0
               and int(s.g.commits[i]) > 0)
@@ -331,12 +381,8 @@ def phase_engine_invariants() -> None:
              commits=int(s.g.commits[i]), iters=int(s.g.iters[i]),
              leftover=leftover, ok=ok)
         assert ok, ("drain invariants", proto)
-    hot = WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=512)
-    protos = ("mysql", "o1", "o2", "group", "bamboo")
-    s = pack([EngineConfig(protocol=protocol_params(proto), costs=CostModel(),
-                           workload=hot, n_threads=128, horizon=100_000)
-              for proto in protos])
-    for i, proto in enumerate(protos):
+    s = packs["oracle"].result()
+    for i, proto in enumerate(ORACLE_PROTOCOLS):
         got = extract_globals(proto, 128, s.g, lane=i).tps
         want = predicted_tps(proto, 128, CostModel())
         ok = abs(got - want) <= 0.15 * want
@@ -345,19 +391,26 @@ def phase_engine_invariants() -> None:
         assert ok, ("oracle", proto, got, want)
 
 
-def phase_engine_vs_cpu() -> None:
+def _engine_vs_cpu_run(proto: str, device: str):
+    """engine_vs_cpu's run of one protocol, its final state as numpy."""
     from repro_torch.core.lock import (WorkloadSpec, CostModel,
                                        protocol_params, run_sim)
     from repro_torch.core.lock.convert import state_to_numpy
     from repro_torch.core.lock.engine import EngineConfig
+    cfg = EngineConfig(
+        protocol=protocol_params(proto), costs=CostModel(),
+        workload=WorkloadSpec(kind="hotspot_update", txn_len=8,
+                              n_rows=4096, write_ratio=0.7),
+        n_threads=64, horizon=10_000, p_abort=0.05, attrib=True)
+    return state_to_numpy(run_sim(cfg, device=device))
+
+
+def phase_engine_vs_cpu(cpu: dict) -> None:
+    """Per protocol, one config on the card here against its CPU run
+    (``cpu``: futures by protocol, run in worker processes)."""
     for proto in PROTOCOLS:
-        cfg = EngineConfig(
-            protocol=protocol_params(proto), costs=CostModel(),
-            workload=WorkloadSpec(kind="hotspot_update", txn_len=8,
-                                  n_rows=4096, write_ratio=0.7),
-            n_threads=64, horizon=10_000, p_abort=0.05, attrib=True)
-        a = state_to_numpy(run_sim(cfg, device="cuda"))
-        b = state_to_numpy(run_sim(cfg, device="cpu"))
+        a = _engine_vs_cpu_run(proto, "cuda")
+        b = cpu[proto].result()
         diff = [f"{part}.{f}"
                 for part in ("th", "rows", "g")
                 for f, x, y in zip(getattr(a, part)._fields,
@@ -366,6 +419,14 @@ def phase_engine_vs_cpu() -> None:
         emit("engine_vs_cpu", protocol=proto, iters=int(a.g.iters),
              differing_leaves=diff, f32_tolerance=0.0)
         assert not diff, (proto, diff)
+
+
+def worker_pool(n: int):
+    """``n`` spawned worker processes (:func:`_worker_init`)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    return ProcessPoolExecutor(n, multiprocessing.get_context("spawn"),
+                               initializer=_worker_init)
 
 
 def lane_accounting(g, lane: int, T: int) -> None:
@@ -971,6 +1032,276 @@ def phase_fig_grids(fig17_horizon: int) -> dict:
     return out
 
 
+# the trace phase's protocols: the engine phase's runs short enough to trace
+# in the time limit (47, 340, 164 and 733 iterations in PR 15's run)
+TRACE_PROTOCOLS = ("mysql", "o2", "bamboo", "brook2pl")
+# iterations of each profiled call in the prof phase (torch.profiler's event
+# processing costs seconds a call at full width)
+DEVICE_ITERS = 8
+# the trace phase's traced-against-untraced run in turns (untraced, traced,
+# traced, untraced): 340 iterations
+TRACE_COST_PROTOCOL = "o2"
+
+
+def _certify(ev: dict, proto: str, cfg):
+    """The certificate of one run's events under its protocol, with the
+    chop ranks of ``cfg`` (the port's split_config) for brook2pl."""
+    from repro_torch.analysis import certify
+    from repro_torch.core.lock import engine
+    pp = cfg.protocol
+    rank = (engine.split_config(cfg, device="cpu")[1].wl.acq_rank.tolist()
+            if pp.ordered_acquire else None)
+    return certify(ev, pp, acq_rank=rank)
+
+
+def trace_calls(cfg, alloc: int) -> dict:
+    """Torch calls per iteration of the untraced step and of the traced
+    one (the events step and the record), on the card after 4 iterations
+    from the initial state (tools/step_calls.py's counter)."""
+    from step_calls import calls_per_iter
+    from repro_torch.core.lock import engine
+    from repro_torch.obs import make_trace
+    from repro_torch.obs.trace import _Recorder
+    stat, dp = engine.split_config(cfg, device="cuda")
+    lp = engine._lanes(dp)
+    step, step_ev = (engine._make_step(stat, lp),
+                     engine._make_step_events(stat, lp))
+    rec = _Recorder(make_trace(alloc, device="cuda"), stat.n_threads)
+
+    def traced(s):
+        s, ev = step_ev(s)
+        rec(ev)
+        return s
+
+    s = engine._unsqueeze(engine.init_state_dyn(stat, dp))
+    for _ in range(4):
+        s = step(s)
+    untraced_calls, _ = calls_per_iter(step, s)
+    traced_calls, _ = calls_per_iter(traced, s)
+    return dict(untraced_calls_per_iter=untraced_calls,
+                traced_calls_per_iter=traced_calls)
+
+
+def timed(fn):
+    """``fn()`` and its wall in seconds, between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def trace_cost_in_turns(cfg, traced, want, alloc: int):
+    """Untraced, traced, traced and untraced runs of one config (``traced``
+    runs it traced): emits their ms per iteration and the torch calls per
+    iteration of each step; returns the first traced run and its wall."""
+    from repro_torch.core.lock import engine, extract
+    untraced = lambda: engine.run_sim(cfg, device="cuda")  # noqa: E731
+    s0, wall_u1 = timed(untraced)
+    first, wall_t1 = timed(traced)
+    _, wall_t2 = timed(traced)
+    s1, wall_u2 = timed(untraced)
+    n = want.iters
+    emit("trace", check="cost_in_turns", protocol=cfg.protocol.name,
+         iters=n, order=["untraced", "traced", "traced", "untraced"],
+         ms_per_iter=[1e3 * w / n for w in (wall_u1, wall_t1, wall_t2,
+                                             wall_u2)],
+         traced_ms_per_iter=1e3 * (wall_t1 + wall_t2) / (2 * n),
+         untraced_ms_per_iter=1e3 * (wall_u1 + wall_u2) / (2 * n),
+         **trace_calls(cfg, alloc))
+    assert extract(cfg.protocol.name, cfg.n_threads, s0) == want
+    assert extract(cfg.protocol.name, cfg.n_threads, s1) == want
+    return first, wall_t1
+
+
+def phase_trace(single: dict, untraced_ms: dict, horizon: int) -> None:
+    """Traced runs at the engine phase's width and horizon, each held to the
+    engine phase's untraced run of its protocol; for
+    :data:`TRACE_COST_PROTOCOL`, untraced and traced runs in turns."""
+    from repro_torch.analysis import total_trace_wait_ticks
+    from repro_torch.core.lock import WorkloadSpec, extract, engine
+    from repro_torch.obs import (EV_ABORT, EV_COMMIT, events_host,
+                                 simulate_traced)
+    T, R = 1024, 1_000_000
+    hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
+    for proto in TRACE_PROTOCOLS:
+        want = single[proto]
+        alloc = 8 * T * want.iters
+        cfg = engine.EngineConfig(
+            protocol=engine.protocol_params(proto), costs=engine.CostModel(),
+            workload=hot, n_threads=T, horizon=horizon, attrib=True)
+        traced = lambda: simulate_traced(  # noqa: E731
+            proto, hot, T, horizon=horizon, attrib=True, cap=alloc,
+            device="cuda")
+        if proto == TRACE_COST_PROTOCOL:
+            (s, tb), wall = trace_cost_in_turns(cfg, traced, want, alloc)
+        else:
+            (s, tb), wall = timed(traced)
+        r = extract(proto, T, s)
+        ev = events_host(tb)
+        wait = total_trace_wait_ticks(ev)
+        cert = _certify(ev, proto, cfg)
+        commits = int((ev["ev"] == EV_COMMIT).sum())
+        aborts = int((ev["ev"] == EV_ABORT).sum())
+        emit("trace", protocol=proto, threads=T, rows=R, horizon=horizon,
+             iters=r.iters, events=ev["n"], dropped=ev["dropped"],
+             alloc=alloc, commit_events=commits, commits=r.commits,
+             abort_events=aborts, trace_wait_ticks=wait,
+             lock_wait_ticks=r.breakdown["lock_wait"],
+             certified=cert.ok, mode=cert.mode, attempts=cert.n_attempts,
+             ww_edges=cert.n_edges, wall_s=wall,
+             traced_ms_per_iter=1e3 * wall / r.iters,
+             untraced_ms_per_iter=untraced_ms[proto])
+        assert r == want, (proto, "traced run != untraced run")
+        assert ev["dropped"] == 0, proto
+        assert commits == r.commits, proto
+        assert aborts == r.user_aborts + r.forced_aborts, proto
+        assert bool(np.all(np.diff(ev["ts"]) >= 0)), (proto, "time order")
+        assert wait <= r.breakdown["lock_wait"], proto
+        assert cert.ok, cert.text()
+    s, tb = simulate_traced("mysql", hot, T, horizon=horizon, attrib=True,
+                            trace_on=False, device="cuda")
+    off_equal = extract("mysql", T, s) == single["mysql"]
+    emit("trace", protocol="mysql", trace_on=False, stored=int(tb.n),
+         equal_to_untraced=off_equal)
+    assert off_equal and int(tb.n) == 0 and int(tb.dropped) == 0
+
+
+def _trace_cli_run(proto: str, device: str):
+    """trace_vs_cpu's run of one protocol: the certifier CLI's
+    hotspot_update workload at seed 1. Returns the events, the Chrome-trace
+    JSON and the final state as numpy."""
+    from repro_torch.analysis import cli
+    from repro_torch.core.lock.convert import state_to_numpy
+    from repro_torch.obs import events_host, simulate_traced, to_chrome_trace
+    over = {} if proto == "brook2pl" else dict(cli.TIMEOUT_OVER)
+    s, tb = simulate_traced(proto, cli._workload("hotspot_update", 1),
+                            cli.THREADS, horizon=cli.HORIZON, p_abort=0.05,
+                            seed=1, cap=65_536, device=device, **over)
+    ev = events_host(tb)
+    return (ev, json.dumps(to_chrome_trace(ev, end=int(s.g.now))),
+            state_to_numpy(s))
+
+
+def phase_trace_vs_cpu() -> None:
+    """The six protocols traced on the card and on the CPU, all twelve runs
+    in :data:`CHECK_WORKERS` worker processes (brook2pl's, the longest,
+    first); this process compares them and certifies the card's traces."""
+    from repro_torch.analysis import cli
+    from repro_torch.core.lock import engine
+    order = ("brook2pl",) + tuple(p for p in PROTOCOLS if p != "brook2pl")
+    t0 = time.perf_counter()
+    with worker_pool(CHECK_WORKERS) as pool:
+        runs = {(p, dev): pool.submit(_trace_cli_run, p, dev)
+                for p in order for dev in ("cuda", "cpu")}
+        for proto in PROTOCOLS:
+            ev, doc, st = runs[proto, "cuda"].result()
+            ev_cpu, doc_cpu, st_cpu = runs[proto, "cpu"].result()
+            diff = [k for k in ("ts", "tid", "row", "ev")
+                    if not np.array_equal(ev[k], ev_cpu[k])]
+            diff += [k for k in ("n", "dropped", "cap")
+                     if ev[k] != ev_cpu[k]]
+            diff += _diff(st, st_cpu, "state.")
+            over = {} if proto == "brook2pl" else dict(cli.TIMEOUT_OVER)
+            cfg = engine.EngineConfig(
+                protocol=engine.protocol_params(proto, **over),
+                costs=engine.CostModel(),
+                workload=cli._workload("hotspot_update", 1),
+                n_threads=cli.THREADS, horizon=cli.HORIZON, p_abort=0.05,
+                seed=1)
+            cert = _certify(ev, proto, cfg)
+            emit("trace_vs_cpu", protocol=proto, iters=int(st.g.iters),
+                 events=ev["n"], differing=diff,
+                 chrome_trace_equal=doc == doc_cpu, certified=cert.ok,
+                 mode=cert.mode, committed=cert.n_committed,
+                 aborted=cert.n_aborted)
+            assert not diff and doc == doc_cpu, (proto, diff)
+            assert cert.ok, cert.text()
+    emit("trace_vs_cpu", runs=len(runs), workers=CHECK_WORKERS,
+         wall_s=time.perf_counter() - t0)
+
+
+def device_time(run, st, n_iters: int) -> dict:
+    """One profiled call of ``run`` (``n_iters`` iterations from ``st``):
+    the summed time of its device activities (kernels, copies, fills) from
+    torch.profiler, per iteration, beside the call's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    return dict(device_events_per_iter=len(dev) / n_iters,
+                device_us_per_iter=busy_us / n_iters,
+                profiled_us_per_iter=1e6 * wall / n_iters,
+                busy_share_profiled=busy_us / (1e6 * wall))
+
+
+def phase_prof(horizon: int, n_iters: int = 32, repeats: int = 3) -> None:
+    """profile_step at the engine phase's full width for group and brook2pl,
+    and the device-busy share of group's full step."""
+    from repro_torch.core.lock import WorkloadSpec, engine
+    from repro_torch.obs import profile_row, profile_step, rank_table
+    from repro_torch.obs.prof import make_iter_runner
+    from step_calls import calls_per_iter
+    T, R = 1024, 1_000_000
+    stages = engine.PROF_STAGES
+    hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
+    for proto in ("group", "brook2pl"):
+        cfg = engine.EngineConfig(
+            protocol=engine.protocol_params(proto), costs=engine.CostModel(),
+            workload=hot, n_threads=T, horizon=horizon, attrib=True)
+        t0 = time.perf_counter()
+        prof = profile_step(cfg, n_iters=n_iters, repeats=repeats,
+                            device="cuda")
+        wall = time.perf_counter() - t0
+        print(rank_table(prof), flush=True)
+        row = dict(protocol=proto, threads=T, rows=R, n_iters=n_iters,
+                   repeats=repeats, us_per_iter=prof.us_per_iter,
+                   stages={r.stage: [r.us_per_iter, r.fraction]
+                           for r in prof.stages},
+                   dominant=prof.dominant.stage, compiles=prof.compiles,
+                   csv=profile_row(f"prof_{proto}", prof), wall_s=wall)
+        assert prof.compiles == len(engine.PROF_STAGES) + 1
+        assert abs(sum(r.fraction for r in prof.stages) - 1.0) < 1e-9
+        # torch calls per iteration of the full step and each ablation's
+        # reduction, on the card's step from the warmed state
+        stat, dp = engine.split_config(cfg, device="cuda")
+        run = make_iter_runner(stat, dp, n_iters)
+        warm = run(engine.init_state_dyn(stat, dp))
+        lp, s1 = engine._lanes(dp), engine._unsqueeze(warm)
+
+        def calls(ablate):
+            step = engine._make_step(stat, lp, ablate=frozenset(ablate))
+            return calls_per_iter(step, s1, 1)[0]
+
+        full_calls = calls(())
+        row.update(calls_per_iter=full_calls, calls_removed={
+            k: full_calls - calls({k}) for k in stages})
+        if proto == "group":
+            # the device's share of the full step's wall, and the device
+            # time each ablation removes (stable where the wall is not),
+            # over DEVICE_ITERS iterations from the warmed state
+            def dev(ablate):
+                run = make_iter_runner(stat, dp, DEVICE_ITERS,
+                                       frozenset(ablate))
+                return device_time(run, warm, DEVICE_ITERS)
+
+            busy = dev(())
+            busy["busy_share_unprofiled"] = (busy["device_us_per_iter"]
+                                             / prof.us_per_iter)
+            row["device"] = busy
+            row["device_us_removed"] = {
+                k: busy["device_us_per_iter"] - dev({k})["device_us_per_iter"]
+                for k in stages}
+        emit("prof", **row)
+
+
 def phase_kernels(inputs, launches: int, rates) -> dict:
     from repro_torch.kernels.grouped_scatter import (
         segment_sums, segment_sums_ref, hot_groups)
@@ -1327,6 +1658,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.grouped_scatter import kernel, segment_sums
@@ -1360,7 +1692,7 @@ def main() -> int:
     # the main path: engine at full width, then the group-locking apply;
     # kernel launch counts are zeroed right before and read right after
     zero_counts()
-    single = phase_engine(args.horizon)
+    single, engine_ms = phase_engine(args.horizon)
     lap("engine")
     inputs = kernel_bench_inputs()
     phase_group_apply(inputs)
@@ -1386,10 +1718,17 @@ def main() -> int:
         ("a bf16 prefill's flash launches all take the wgmma route", by_route)
     lap("model")
 
-    phase_engine_invariants()
-    lap("engine_invariants")
-    phase_engine_vs_cpu()
-    lap("engine_vs_cpu")
+    # engine_invariants' two packs and engine_vs_cpu's CPU half run in
+    # worker processes while this process runs engine_vs_cpu's card half
+    with worker_pool(CHECK_WORKERS) as pool:
+        packs = {c: pool.submit(_invariant_pack, c)
+                 for c in ("drain", "oracle")}
+        cpu = {p: pool.submit(_engine_vs_cpu_run, p, "cpu")
+               for p in PROTOCOLS}
+        phase_engine_vs_cpu(cpu)
+        lap("engine_vs_cpu")
+        phase_engine_invariants(packs)
+        lap("engine_invariants")
 
     # the batched engine and the sweep: no TPU kernel lies on this path
     # (the engine step is plain torch), so its counts stay at 0
@@ -1421,6 +1760,18 @@ def main() -> int:
     emit("serving_path", launches={
         "segment_sums": segment_sums.launches,
         "flash_attention": flash_attention.launches})
+
+    # the observability layer and the certifier ride the engine step: no TPU
+    # kernel lies on this path either, so the counts stay at 0
+    zero_counts()
+    phase_trace(single, engine_ms, args.horizon)
+    lap("trace")
+    phase_trace_vs_cpu()
+    lap("trace_vs_cpu")
+    phase_prof(args.horizon)
+    lap("prof")
+    emit("obs_path", launches={"segment_sums": segment_sums.launches,
+                               "flash_attention": flash_attention.launches})
     row = phase_kernels(inputs, launches, card_rates(name))
     lap("kernels")
     flash_row = phase_flash(cfg, params, args.seed, flash_launches, by_route,

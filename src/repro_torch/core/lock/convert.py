@@ -6,7 +6,10 @@ of ``SimState`` / ``Threads`` / ``Rows`` / ``Globals``, of ``DynParams`` /
 parameter set turned into numpy on one side (``jax.tree.map(np.asarray,
 x)`` there, :func:`state_to_numpy` / :func:`params_to_numpy` here) comes
 back on the other side through :func:`state_from_numpy` /
-:func:`params_from_numpy`, so both engines can start from one state. Packs
+:func:`params_from_numpy`, so both engines can start from one state. An
+event buffer (``TraceBuf``) crosses the same way through
+:func:`trace_from_numpy` / :func:`trace_to_numpy`, so a traced run resumes
+in either package. Packs
 of G lanes (a leading axis on every leaf, as the reference's ``vmap``
 entries take them) cross the same way. The objects passed in only need
 attributes with the right names, so nothing here imports the reference.
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from ...device import resolve
+from ...obs.trace import TraceBuf
 from .aria import AriaState
-from .engine import DynParams, Globals, Rows, SimState, Threads
+from .engine import NOTK, DynParams, Globals, Rows, SimState, Threads
 from .workload import DynWorkload
 
 _TENSORS = ("zcdf", "acq_rank", "txn_cap")
@@ -107,3 +111,34 @@ def params_to_numpy(dp):
 
     return conv(dp)
 
+
+
+def trace_from_numpy(tb, device=None):
+    """An event buffer with numpy leaves (reference layout: ``alloc``-long
+    columns) -> the port's ``TraceBuf`` on ``device``, its columns one sink
+    slot longer."""
+    dev = resolve(device)
+
+    def col(a):
+        a = np.asarray(a, np.int32)
+        return _tensor(np.append(a, np.int32(NOTK)), dev)
+
+    return TraceBuf(ts=col(tb.ts), tid=col(tb.tid), row=col(tb.row),
+                    ev=col(tb.ev), n=_tensor(np.int32(tb.n), dev),
+                    dropped=_tensor(np.int32(tb.dropped), dev),
+                    cap=_tensor(np.int32(tb.cap), dev), on=bool(tb.on))
+
+
+def trace_to_numpy(tb):
+    """The port's ``TraceBuf`` -> the same NamedTuple in the reference's
+    layout: ``alloc``-long numpy columns (the sink slot dropped), 0-d i32
+    counters and a numpy bool switch."""
+    def col(t):
+        return t[:-1].detach().cpu().numpy()
+
+    def scalar(t):
+        return t.detach().cpu().numpy()
+
+    return type(tb)(ts=col(tb.ts), tid=col(tb.tid), row=col(tb.row),
+                    ev=col(tb.ev), n=scalar(tb.n), dropped=scalar(tb.dropped),
+                    cap=scalar(tb.cap), on=np.asarray(tb.on))

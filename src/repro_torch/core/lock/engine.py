@@ -93,6 +93,20 @@ CA_WAIT, CA_GRANTS, CA_TIMEOUTS, CA_VICTIMS, CA_QSUM, CA_QMAX = range(N_CA)
 CA_NAMES = ("wait_ticks", "grants", "timeouts", "victims",
             "queue_sum", "queue_max")
 
+# stage ablation (the step profiler's seam, ``repro_torch.obs.prof``):
+# ``_make_step_events(..., ablate={stage})`` replaces one stage's compute by
+# a shape-correct stand-in. Each stand-in is the identity on the step when
+# the stage's work is absent (protocol flag off, read-only workload, txn_len
+# 1), and the empty set is the production step, call for call.
+PROF_STAGES = (
+    "dup_analysis",    # gen_txn_lanes' (T, L, L) pairwise dup/last-use scan
+    "deadlock_walk",   # the 8-hop waits-for cycle walk (stage 1b)
+    "ticket_grant",    # grant-rule masks (4a) + FIFO ticket argsort (8)
+    "commit_cursor",   # _derive: cc/top/us/holder T*L -> R seg reductions
+    "group_hotspot",   # group-lock / group-commit / hotspot-detect branches
+    "tick_charge",     # TickBreakdown (and contention) scatters (stage 5)
+)
+
 
 def _hist_thresholds() -> np.ndarray:
     """Smallest latency of each bucket 1..N_HIST-1 under the reference's
@@ -540,11 +554,23 @@ class Derived(NamedTuple):
 
 
 def _derive(stat: StaticShape, group_commit, th: Threads, rows: Rows,
-            kf: _Keys) -> Derived:
+            kf: _Keys, ablate: frozenset = frozenset()) -> Derived:
     """Per-row aggregates of a pack's ticket tables (``group_commit`` is
     the lanes' flag: a host bool or a (G, 1) tensor)."""
     R = stat.n_rows
     G, T, L = th.keys.shape
+    if "commit_cursor" in ablate:
+        # profiler stand-in: every aggregate at its no-live-ticket value
+        # (the identity on read-only workloads)
+        dev = th.keys.device
+        return Derived(
+            us=rows.nt, cc=rows.nt,
+            top=torch.full((G, R), NOTK, dtype=I32, device=dev),
+            holder=torch.full((G, R), NOTK, dtype=I32, device=dev),
+            n_wait=torch.zeros((G, R), dtype=I32, device=dev),
+            n_live=torch.zeros((G, R), dtype=I32, device=dev),
+            hotof=torch.full((G, T), NOTK, dtype=I32, device=dev),
+            napp=torch.zeros((G, T), dtype=I32, device=dev))
     live = th.ticket >= 0
     blocking = live & (~th.applied | ~th.early)
     appl = live & th.applied
@@ -573,9 +599,38 @@ def _derive(stat: StaticShape, group_commit, th: Threads, rows: Rows,
 # engine step
 # ---------------------------------------------------------------------------
 
-def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
+class StepEvents(NamedTuple):
+    """One iteration's event masks, as :func:`_make_step_events` returns
+    them: tensors the step computes anyway, named for the tracer
+    (``repro_torch.obs.trace``); the untraced step drops them.
+
+    ``grant``/``group_join``/``timeout``/``victim`` are decided at the
+    start of the interval (tick ``t_pre``); ``release``/``commit``/
+    ``wait_enter``/``abort`` fire at its end (``t_post``). ``row_cur`` is
+    the thread's current-op row at the start of the interval, ``row_begin``
+    the row of the op begun in it (``wait_enter``). ``abort`` fires when a
+    rollback completes, whatever forced it. A mask of a branch that no lane
+    takes is all false.
+    """
+    t_pre: torch.Tensor       # (G,) tick at interval start
+    t_post: torch.Tensor      # (G,) tick at interval end
+    row_cur: torch.Tensor     # (G, T) current-op row at interval start
+    row_begin: torch.Tensor   # (G, T) row of the op begun this iteration
+    grant: torch.Tensor       # (G, T) bool WAIT -> EXEC lock grant
+    group_join: torch.Tensor  # (G, T) bool grant joined an open hot group
+    timeout: torch.Tensor     # (G, T) bool lock/commit wait timed out
+    victim: torch.Tensor      # (G, T) bool chosen as deadlock victim
+    release: torch.Tensor     # (G, T) bool brook per-op early release
+    commit: torch.Tensor      # (G, T) bool txn committed
+    wait_enter: torch.Tensor  # (G, T) bool took a ticket, entered WAIT
+    abort: torch.Tensor       # (G, T) bool rollback completed (any cause)
+
+
+def _make_step_events(stat: StaticShape, lp: SimpleNamespace, until=None,
+                      ablate: frozenset = frozenset()):
     """Build the tick step for a pack of G lanes (``lp`` from
-    :func:`_lanes`). Stage numbers and line-by-line semantics follow
+    :func:`_lanes`): ``step(s) -> (SimState, StepEvents)``. Stage numbers
+    and line-by-line semantics follow
     ``repro.core.lock.engine._make_step_events``; a branch whose flag is
     off in every lane is skipped on the host.
 
@@ -584,7 +639,15 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
     work the jump stops at ``until``; busy steps are never split, so a
     segmented run replays the single-shot step sequence (the reference's
     docstring has the argument).
+
+    ``ablate`` (profiler only, :data:`PROF_STAGES`) names stages whose
+    compute is replaced by the reference's stand-ins; the empty set issues
+    the production step's torch calls, no more.
     """
+    ablate = frozenset(ablate)
+    unknown = ablate - set(PROF_STAGES)
+    if unknown:
+        raise ValueError(f"unknown stages: {sorted(unknown)}")
     T, R, L, G = stat.n_threads, stat.n_rows, stat.txn_len, lp.G
     dev = lp.dev
     tids = torch.arange(T, dtype=I32, device=dev)
@@ -614,10 +677,10 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         """Per-thread value at its current op slot (``opc`` clipped)."""
         return field_tl.gather(2, opc).squeeze(2)
 
-    def step(s: SimState) -> SimState:
+    def step(s: SimState) -> tuple[SimState, StepEvents]:
         th, rows, g = s
         kf = _keys(th.keys, R)
-        d = _derive(stat, lp.group_commit, th, rows, kf)
+        d = _derive(stat, lp.group_commit, th, rows, kf, ablate)
         now = g.now[:, None]
 
         opc = th.op.clamp(0, L - 1).long()[..., None]
@@ -641,7 +704,7 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         # 1b. deadlock detection (waits-for cycle walk, up to 8 hops); one
         # victim per cycle: its max thread id.
         holder_at = _take(d.holder, ck)
-        if _on(lp.has_detection):
+        if _on(lp.has_detection) and "deadlock_walk" not in ablate:
             succ = torch.where(in_wait, holder_at, NOTK)
             succ = torch.where(succ == tids, NOTK, succ)
             walk = succ
@@ -687,8 +750,14 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         # ------------------------------------------------ 4. grants
         # 4a. WAIT -> EXEC
         hot_w = _take(rows.hot, ck)
-        grantable = ((phase == WAIT) & ~forced & (cur_tkt == _take(d.us, ck))
-                     & ~_take(rows.updating, ck) & (_take(casc, ck) == INF))
+        if "ticket_grant" in ablate:
+            # stand-in: nothing grants (the identity on read-only workloads)
+            grantable = false_t
+        else:
+            grantable = ((phase == WAIT) & ~forced
+                         & (cur_tkt == _take(d.us, ck))
+                         & ~_take(rows.updating, ck)
+                         & (_take(casc, ck) == INF))
         gl_f = lp.group_lock
         if _on(gl_f):
             open_leader = _take(rows.gleader, ck)
@@ -728,7 +797,7 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         updating = rows.updating | upd_new
 
         gl, gc = rows.gleader, rows.gcount
-        if _on(gl_f):
+        if _on(gl_f) and "group_hotspot" not in ablate:
             gl_on = gl.reshape(-1).scatter_reduce(
                 0, ck.idx.reshape(-1),
                 torch.where(ck.ok & is_leader_grant, cur_tkt, NOTK)
@@ -759,7 +828,7 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
 
         base_cost = lp.commit_base + lp.sync_lat
         batch_end, batch_n = rows.batch_end, rows.batch_n
-        if _on(lp.gcommit):
+        if _on(lp.gcommit) and "group_hotspot" not in ablate:
             h_ok = d.hotof >= 0
             hk = _keys(torch.where(h_ok, d.hotof, 0), R)
             be = _take(batch_end, hk)
@@ -824,16 +893,19 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         is_ex = phase == EXEC
         ddpay = torch.where(is_ex, torch.minimum(detleft, dt), 0)
         detleft = detleft - ddpay
-        engaged = ((phase == WAIT) | is_ex | (phase == CWAIT)
-                   | (phase == COMMIT))
-        branch = (engaged & _take(rows.hot, ck)).to(I32) * N_TB + tb_off
-        tb = g.tb.reshape(-1).scatter_add(
-            0, torch.cat([(branch + tb_bin[phase.long()]).reshape(-1),
-                          (branch + TB_DETECT).reshape(-1)]).long(),
-            torch.cat([torch.where(is_ex, dt - ddpay, dt).reshape(-1),
-                       ddpay.reshape(-1)]))
-        g = g._replace(tb=tb.view(g.tb.shape))
-        if _on(lp.attrib):
+        if "tick_charge" not in ablate:
+            engaged = ((phase == WAIT) | is_ex | (phase == CWAIT)
+                       | (phase == COMMIT))
+            branch = (engaged & _take(rows.hot, ck)).to(I32) * N_TB + tb_off
+            tb = g.tb.reshape(-1).scatter_add(
+                0, torch.cat([(branch + tb_bin[phase.long()]).reshape(-1),
+                              (branch + TB_DETECT).reshape(-1)]).long(),
+                torch.cat([torch.where(is_ex, dt - ddpay, dt).reshape(-1),
+                           ddpay.reshape(-1)]))
+            g = g._replace(tb=tb.view(g.tb.shape))
+        # the stand-in leaves tb (and ca) untouched; detleft above still
+        # evolves, so every other leaf is exact on any config
+        if _on(lp.attrib) and "tick_charge" not in ablate:
             vals = torch.stack([
                 torch.where(phase == WAIT, dt, 0), grantable.to(I32),
                 (to_fire & in_wait).to(I32), victim.to(I32)])   # (4, G, T)
@@ -880,6 +952,8 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
                         & rel_now[..., None])
             released = released | rel_slot
             early = early | (rel_slot & applied)
+        else:
+            rel_now = false_t
         nop = th.op + e_done.to(I32)
         txn_done = e_done & (nop >= th.nops)
         # forced threads stop making progress after their op completes
@@ -950,7 +1024,8 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
             st = st & ~early_t
         keys_n, iswr_n, dup_n, lastu_n, nops_n = gen_txn_lanes(
             stat.kind, R, L, lp.wl, tids, txn,
-            acq_order=lp.ordered_acquire)
+            acq_order=lp.ordered_acquire,
+            skip_analysis="dup_analysis" in ablate)
         if _on(lp.p_abort):
             wab = will_abort_dyn(lp.wl.seed, lp.p_abort, tids, txn)
             willab = torch.where(st, wab, th.willab)
@@ -982,16 +1057,21 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
         # FIFO ticket assignment with same-tick ranking (sort by key); the
         # sentinel key R sorts non-takers after every real key. enc is
         # unique within a lane, so the order is deterministic.
-        enc = torch.where(need_ticket, bkey, R) * T + tids
-        order = torch.argsort(enc, dim=1)
-        sk = bkey.gather(1, order)
-        sm = need_ticket.gather(1, order)
-        same = torch.cat([torch.zeros((G, 1), dtype=torch.bool, device=dev),
-                          (sk[:, 1:] == sk[:, :-1]) & sm[:, 1:] & sm[:, :-1]],
-                         dim=1)
-        seg_start = torch.cummax(torch.where(same, 0, tids), dim=1).values
-        rank = torch.empty((G, T), dtype=I32, device=dev).scatter_(
-            1, order, tids - seg_start)
+        if "ticket_grant" in ablate:
+            # stand-in: no same-tick ranking (exact when no thread takes a
+            # ticket, as on read-only workloads)
+            rank = zero_t
+        else:
+            enc = torch.where(need_ticket, bkey, R) * T + tids
+            order = torch.argsort(enc, dim=1)
+            sk = bkey.gather(1, order)
+            sm = need_ticket.gather(1, order)
+            same = torch.cat([
+                torch.zeros((G, 1), dtype=torch.bool, device=dev),
+                (sk[:, 1:] == sk[:, :-1]) & sm[:, 1:] & sm[:, :-1]], dim=1)
+            seg_start = torch.cummax(torch.where(same, 0, tids), dim=1).values
+            rank = torch.empty((G, T), dtype=I32, device=dev).scatter_(
+                1, order, tids - seg_start)
         tkt = torch.where(need_ticket, _take(rows.nt, bk) + rank, NOTK)
         nt = _scat_add(rows.nt, bk, need_ticket.to(I32))
         ticket = ticket.scatter(
@@ -1001,7 +1081,7 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
 
         # ------------------------------------------------ 9. hotspot detect
         hot = rows.hot
-        if _on(lp.hot_queue):
+        if _on(lp.hot_queue) and "group_hotspot" not in ablate:
             live3 = ticket >= 0
             d3_nwait, d3_nlive = _seg_count((live3 & ~applied, live3),
                                             _keys(keys, R), G, R)
@@ -1021,9 +1101,23 @@ def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None):
             nt=nt, updating=updating, hot=hot, gleader=gl, gcount=gc,
             casc=casc, batch_end=batch_end, batch_n=batch_n,
             applied_val=applied_val, committed_val=committed_val)
-        return SimState(th, rows, g)
+        ev = StepEvents(
+            t_pre=s.g.now, t_post=g.now, row_cur=cur_key, row_begin=bkey,
+            grant=grantable, group_join=is_member_grant, timeout=to_fire,
+            victim=victim, release=rel_now, commit=c_done,
+            wait_enter=need_ticket, abort=r_done)
+        return SimState(th, rows, g), ev
 
     return step
+
+
+def _make_step(stat: StaticShape, lp: SimpleNamespace, until=None,
+               ablate: frozenset = frozenset()):
+    """The untraced step: :func:`_make_step_events` without the event
+    tuple (the masks are tensors the step computes anyway, so dropping them
+    costs nothing)."""
+    step_events = _make_step_events(stat, lp, until=until, ablate=ablate)
+    return lambda s: step_events(s)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -182,7 +182,7 @@ def _e(v):
 
 def gen_txn_lanes(kind: str, n_rows: int, L: int, dw: DynWorkload,
                   thread_ids: torch.Tensor, txn_ctr: torch.Tensor,
-                  acq_order=False):
+                  acq_order=False, skip_analysis: bool = False):
     """Generate transaction programs for every thread of G lanes.
 
     Args:
@@ -199,6 +199,9 @@ def gen_txn_lanes(kind: str, n_rows: int, L: int, dw: DynWorkload,
          order (``dw.acq_rank``) before the dup/last-use analysis
          (Brook-2PL's ``ordered_acquire``): a host bool, or a (G, 1) bool
          tensor that selects per lane.
+      skip_analysis: the profiler's ``dup_analysis`` stand-in (engine
+         ``PROF_STAGES``): skip the (G, T, L, L) pairwise scan, returning
+         no dups and every active slot as a last use. Exact at txn_len 1.
 
     Returns ``keys`` (G, T, L) i32, ``iswr`` (G, T, L) bool, ``dup``
     (G, T, L) bool (key already written earlier in the txn), ``lastu``
@@ -286,6 +289,10 @@ def gen_txn_lanes(kind: str, n_rows: int, L: int, dw: DynWorkload,
             iswr = torch.where(_e(acq_order), sw, iswr)
 
     active = slot < txn_len                              # (.., 1, L)
+    nops = torch.zeros((G, T), dtype=I32, device=dev) + dw.txn_len
+    if skip_analysis:
+        return (keys, iswr, torch.zeros_like(iswr),
+                torch.broadcast_to(active, iswr.shape), nops)
     # dup[i] = key i written at an earlier slot (re-entrant lock).
     eq = keys[..., :, None] == keys[..., None, :]        # (G, T, L, L)
     earlier = torch.ones((L, L), dtype=torch.bool, device=dev).tril(-1)
@@ -293,20 +300,18 @@ def gen_txn_lanes(kind: str, n_rows: int, L: int, dw: DynWorkload,
     # lastu[i] = no LATER active slot touches key i (== chop.last_use).
     later = torch.ones((L, L), dtype=torch.bool, device=dev).triu(1)
     lastu = active & ~torch.any(eq & later & active[..., None, :], dim=-1)
-
-    nops = torch.zeros((G, T), dtype=I32, device=dev) + dw.txn_len
     return keys, iswr, dup, lastu, nops
 
 
 def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
                 thread_ids: torch.Tensor, txn_ctr: torch.Tensor,
-                acq_order: bool = False):
+                acq_order: bool = False, skip_analysis: bool = False):
     """One config's programs: :func:`gen_txn_lanes` at G = 1, with ``dw``
     the single-lane :class:`DynWorkload` and ``txn_ctr`` (T,). Returns
     (T, L) ``keys``/``iswr``/``dup``/``lastu`` and (T,) ``nops``."""
     lanes = dw._replace(zcdf=dw.zcdf[None], acq_rank=dw.acq_rank[None])
     out = gen_txn_lanes(kind, n_rows, L, lanes, thread_ids, txn_ctr[None],
-                        acq_order=acq_order)
+                        acq_order=acq_order, skip_analysis=skip_analysis)
     return tuple(x[0] for x in out)
 
 

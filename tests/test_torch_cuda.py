@@ -2,8 +2,9 @@
 against their plain versions, the engine on the card against its CPU run
 (single lanes, packs of lanes and segmented packs), a compacted sweep
 against the sort-then-cut one, a governed pack and an open-load serving
-pack against their CPU runs, and the qwen2 serving path through the flash
-kernel against the plain path.
+pack against their CPU runs, traced runs against their CPU runs (and the
+tracer's record adding no host sync), the step profiler on the card, and
+the qwen2 serving path through the flash kernel against the plain path.
 This file imports no JAX, so it also runs on a GPU host without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -308,3 +309,70 @@ def test_qwen2_kernel_path_on_card(card):
                             pos=64)
     err = float((full - logits[:, 0]).abs().max())
     assert err / float(full.abs().max()) < 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proto", PROTOS)
+def test_traced_run_on_card_equals_cpu(card, proto):
+    """A traced run (tpcc, p_abort 0.05) on the card: the same events and
+    the same state as on the CPU."""
+    from repro_torch.obs import events_host, simulate_traced
+    wl = WorkloadSpec(kind="tpcc", n_rows=256, txn_len=4, n_warehouses=4,
+                      seed=1)
+    run = dict(horizon=6_000, p_abort=0.05, seed=1, cap=65_536)
+    if proto != "brook2pl":
+        run.update(wait_timeout=8_000, commit_wait_timeout=8_000)
+    out = {dev: simulate_traced(proto, wl, 16, device=dev, **run)
+           for dev in ("cuda", "cpu")}
+    a, b = (events_host(out[d][1]) for d in ("cuda", "cpu"))
+    assert a["n"] == b["n"] > 0 and a["dropped"] == b["dropped"] == 0
+    for k in ("ts", "tid", "row", "ev"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for x, y in zip(_np_leaves(state_to_numpy(out["cuda"][0])),
+                    _np_leaves(state_to_numpy(out["cpu"][0]))):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_record_adds_no_host_sync(card):
+    """The tracer's per-iteration record under CUDA's sync debug mode
+    "error": any host synchronisation inside it raises."""
+    from repro_torch.core.lock import engine
+    from repro_torch.obs import make_trace
+    from repro_torch.obs.trace import _Recorder
+    cfg = EngineConfig(protocol=protocol_params("mysql"), costs=CostModel(),
+                       workload=WorkloadSpec(kind="zipf", n_rows=64,
+                                             txn_len=4),
+                       n_threads=32, horizon=100_000)
+    stat, dp = engine.split_config(cfg, device="cuda")
+    step = engine._make_step_events(stat, engine._lanes(dp))
+    s = engine._unsqueeze(engine.init_state_dyn(stat, dp))
+    rec = _Recorder(make_trace(cap=4096, device="cuda"), 32)
+    evs = []
+    for _ in range(20):
+        s, ev = step(s)
+        evs.append(ev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for ev in evs:
+            rec(ev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tb = rec.buf()
+    assert int(tb.n) > 0 and int(tb.dropped) == 0
+
+
+@pytest.mark.cuda
+def test_profile_step_on_card(card):
+    from repro_torch.obs import profile_step
+    cfg = EngineConfig(protocol=protocol_params("group"), costs=CostModel(),
+                       workload=WorkloadSpec(kind="hotspot_update",
+                                             n_rows=4096, txn_len=4),
+                       n_threads=64, horizon=1_000_000)
+    stages = ("commit_cursor", "ticket_grant", "tick_charge")
+    prof = profile_step(cfg, n_iters=8, repeats=2, stages=stages,
+                        device="cuda")
+    assert prof.compiles == len(stages) + 1
+    assert abs(sum(r.fraction for r in prof.stages) - 1.0) < 1e-9
+    assert prof.us_per_iter > 0

@@ -88,6 +88,22 @@ def test_default_device_needs_cuda(no_cuda):
                         device="cpu").segments["g"][-1]["t1"] == 200
     assert serve([scell], seg_ticks=100,
                  device="cpu").serving["s"].arrived == 8
+    # the tracer, the profiler and the certifier
+    from repro_torch.analysis import certify_run
+    from repro_torch.obs import make_trace, profile_step, simulate_traced
+    from repro_torch.core.lock import (CostModel, EngineConfig,
+                                       protocol_params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_trace(16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_traced("mysql", wl, n_threads=4, horizon=100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        certify_run("mysql", wl, 4, horizon=100)
+    cfg = EngineConfig(protocol=protocol_params("mysql"), costs=CostModel(),
+                       workload=wl, n_threads=4, horizon=100)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_step(cfg, n_iters=2, repeats=1)
+    assert certify_run("mysql", wl, 4, horizon=100, device="cpu").ok
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
