@@ -32,6 +32,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     launch counts are zeroed before it and read right after
                     (the flash kernel: once per layer of the prefill, every
                     launch on the bf16 wgmma route)
+  models            every other family's serving path. deepseek-v2-lite-16b
+                    (MLA + MoE, 15.7 B parameters) at full width with bf16
+                    weights from --seed: a prefill of one 4,096-token
+                    prompt (prefill_32k's 32,768 x 32 cut to fit the time
+                    limit) with attn_chunk 1,024; chunked against dense with
+                    f32 activations over the same weights and deterministic
+                    algorithms (last-token logits within 1e-4 of max
+                    |logit|; the bf16 pair printed: see CHUNKED_TOL), the MoE
+                    drop count of each layer, 32 absorbed-MLA decode steps
+                    and a GroupServer of 12 requests over the same weights;
+                    prefill s, tokens/s, decode ms a step, peak GiB. Then
+                    the nine non-qwen2 architectures at their smoke configs
+                    in f32 (B=2, S=24): prefill (kernel path) and a decode
+                    step on the card against the port's CPU run of the same
+                    weights (2e-4 relative, logits and caches; the CPU runs
+                    in CHECK_WORKERS processes started before the phase),
+                    prefill + decode against the full forward at capacity
+                    factor 8 (2e-4), and one FMA flash launch per global
+                    layer and prefill; the phase's wall
   engine_invariants drain invariants per protocol (T=64, R=4096) and the
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000),
@@ -143,7 +162,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     |logit|; f32 prefill-then-decode against the full
                     forward within 2e-4); at the main path's shape the same
                     bf16 bar, then kernel and SDPA timed in turns (kernel,
-                    library, library, kernel), the FMA kernel once in f32
+                    library, library, kernel), the FMA kernel once in f32;
+                    gemma3-12b's global-layer shape (B=1, S=8,192, H=16,
+                    K=8, D=240, bf16, causal) on the FMA kernel against its
+                    plain version (1e-5), then timed beside SDPA (in turns)
+                    and its bound
 
 ``--fig15-horizon TICKS`` runs only the card check (gpu) and fig15's
 skew_ramp scenario (benchmarks/fig15_adaptive.py: Zipf txn_len 4, R=8192,
@@ -1428,6 +1451,280 @@ def phase_model(seed: int) -> tuple:
     return cfg, params
 
 
+# the models phase: deepseek-v2-lite-16b at full width (bf16), its prompt
+# cut from prefill_32k's 32,768 x 32 to one prompt of 4,096 tokens, and the
+# query-chunked attention at 1,024 rows a block against the dense one
+MODELS_ARCH = "deepseek-v2-lite-16b"
+MODELS_SEQ = 4_096
+MODELS_ATTN_CHUNK = 1_024
+# the other architectures, at their smoke configs in f32
+SMOKE_ARCHS = ("deepseek-coder-33b", "gemma3-12b", "command-r-35b",
+               "arctic-480b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
+               "musicgen-medium", "qwen2-vl-2b", "mamba2-1.3b")
+SMOKE_ARCH_SHAPE = (2, 24)          # batch, prompt (test_decode_consistency)
+# the chunked prefill against the dense one: test_decode_consistency's
+# chunked-vs-dense bar, as last-token logits relative to max |logit|, with
+# f32 activations over the same bf16 weights and deterministic algorithms.
+# By default the MoE combine's index_add_ sums with atomics, so two dense
+# prefills of one prompt differ run to run (8.3e-5 in f32, and up to
+# percents in bf16, where MoE routing with ~73,000 capacity drops over the
+# 26 layers amplifies a last bit); with deterministic algorithms chunked
+# and dense prefills were equal bit for bit in f32 and bf16 (an H100 80GB
+# HBM3 at 700 W). The bf16 pair is printed too
+CHUNKED_TOL = 1e-4
+
+
+def _to(tree, dev):
+    """A parameter, input or cache tree (dicts, lists, NamedTuples) on
+    ``dev``."""
+    if isinstance(tree, dict):
+        return {key: _to(val, dev) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [_to(val, dev) for val in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(val, dev) for val in tree))
+    return tree.to(dev)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for val in tree.values() for x in _leaves(val)]
+    if isinstance(tree, (list, tuple)):
+        return [x for val in tree for x in _leaves(val)]
+    return [tree]
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _n_global(cfg) -> int:
+    """Global (flash-kernel) attention layers of a config."""
+    return sum(reps * sum(m == "global" for m, _ in unit)
+               for unit, reps in cfg.layout)
+
+
+def _arch_run(arch: str, seed: int, device: str) -> dict:
+    """One smoke-size architecture in f32 on ``device``, weights from
+    ``seed`` made on the CPU (so that both devices hold the same ones):
+    prefill (kernel path) and one decode step at the default capacity
+    factor, and at capacity factor 8 (no MoE drops) the same against the
+    full forward. Returns numpy arrays and the flash launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import (decode_step, forward, init_params,
+                                    lm_spec, prefill)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              act_dtype="float32")
+    params = _to(init_params(lm_spec(cfg), seed, device="cpu"), device)
+    B, S = SMOKE_ARCH_SHAPE
+    rng = np.random.default_rng(seed)
+    inp = {}
+    if cfg.embed_inputs:
+        inp["tokens"] = rng.integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
+    else:
+        inp["embeds"] = rng.normal(size=(B, S + 1, cfg.d_model)).astype(
+            np.float32)
+    if cfg.mrope:
+        inp["positions3"] = np.sort(rng.integers(0, 3 * S, (3, B, S + 1)),
+                                    axis=-1).astype(np.int32)
+    inp = {k: torch.from_numpy(v).to(device) for k, v in inp.items()}
+
+    def cut(sl):
+        return {k: (v[:, :, sl] if k == "positions3" else v[:, sl])
+                for k, v in inp.items()}
+
+    def host(t):
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    before = flash_attention.launches
+    out = {}
+    for name, c in (("default", cfg),
+                    ("cf8", dataclasses.replace(cfg, capacity_factor=8.0))):
+        lp, caches = prefill(params, c, use_kernel=True, max_len=S + 1,
+                             device=device, **cut(slice(0, S)))
+        ld, caches = decode_step(params, c, caches=caches, pos=S,
+                                 device=device, **cut(slice(S, S + 1)))
+        out[name] = [host(lp), host(ld)] + [host(t) for t in _leaves(caches)]
+    cfg_f = dataclasses.replace(cfg, capacity_factor=8.0, ssm_chunk=1) \
+        if arch == "mamba2-1.3b" else dataclasses.replace(
+            cfg, capacity_factor=8.0)
+    full = forward(params, cfg_f, mode="prefill", device=device, **inp)
+    out["full"] = host(full.logits[:, -1])
+    out["launches"] = flash_attention.launches - before
+    return out
+
+
+def _arch_cpu_run(arch: str, seed: int) -> dict:
+    """:func:`_arch_run` on the CPU, in a worker process."""
+    return _arch_run(arch, seed, "cpu")
+
+
+class _MoEStatsLog:
+    """Records the MoEStats of every MoE layer a forward runs (by wrapping
+    the transformer module's ``moe`` while active); read after the run."""
+
+    def __init__(self):
+        self.stats = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._mod, self._moe = transformer, transformer.moe
+
+        def moe(*args, **kw):
+            y, st = self._moe(*args, **kw)
+            self.stats.append(st)
+            return y, st
+        transformer.moe = moe
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe = self._moe
+
+
+def phase_models(seed: int, cpu_runs: dict) -> int:
+    """deepseek-v2-lite-16b at full width in bf16 (prefill of one 4,096-
+    token prompt, chunked against dense, 32 absorbed-MLA decode steps, a
+    GroupServer of 12 requests), then the nine non-qwen2 architectures at
+    their smoke configs on the card against their CPU runs (``cpu_runs``:
+    futures by architecture). Returns the flash launches expected of it."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import GroupServer, Request
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import count_params, init_params, lm_spec
+    t_phase = time.perf_counter()
+    cfg = get_config(MODELS_ARCH)
+    shape = SHAPES["prefill_32k"]
+    B, S = 1, MODELS_SEQ
+    emit("models", check="cut", arch=MODELS_ARCH, shape=shape.name,
+         seq_len=S, global_batch=shape.global_batch, batch=B,
+         attn_chunk=MODELS_ATTN_CHUNK,
+         note=f"prompt cut from {shape.seq_len} x {shape.global_batch} to "
+              f"{S} x {B} to fit the time limit; weights bf16")
+    t0 = time.perf_counter()
+    params = init_params(lm_spec(cfg), seed, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(lm_spec(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    chunked = dataclasses.replace(cfg, attn_chunk=MODELS_ATTN_CHUNK)
+    step = make_prefill_step(chunked, use_kernel=True,
+                             max_len=S + DECODE_STEPS)
+    step(params, {"tokens": tokens[:, :256]})          # first-call warm-up
+    torch.cuda.synchronize()
+    with _MoEStatsLog() as log:
+        t0 = time.perf_counter()
+        logits, caches = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    assert logits.shape == (B, 1, cfg.padded_vocab), logits.shape
+    assert bool(torch.isfinite(logits.float()).all()), "prefill logits"
+    n_moe = sum(reps for unit, reps in cfg.layout for _, m in unit
+                if "moe" in m)
+    assert len(log.stats) == n_moe, (len(log.stats), n_moe)
+    first = log.stats[0]
+    drops = [int(st.dropped) for st in log.stats]
+    assert int(first.expert_counts.sum()) == B * S * cfg.top_k
+    emit("models", check="moe_drops", layer="g1/u0[0]",
+         dropped=drops[0], assignments=B * S * cfg.top_k,
+         capacity_factor=cfg.capacity_factor,
+         expert_counts_max=int(first.expert_counts.max()),
+         expert_counts_min=int(first.expert_counts.min()),
+         dropped_all_layers=sum(drops))
+    pair = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for act in ("float32", "bfloat16"):
+            for chunk in (MODELS_ATTN_CHUNK, 0):
+                c = dataclasses.replace(cfg, act_dtype=act, attn_chunk=chunk)
+                pair[act, chunk], _ = make_prefill_step(c, use_kernel=True)(
+                    params, {"tokens": tokens})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rel = _rel_err(pair["float32", MODELS_ATTN_CHUNK], pair["float32", 0])
+    bf16_rel = _rel_err(pair["bfloat16", MODELS_ATTN_CHUNK],
+                        pair["bfloat16", 0])
+    emit("models", check="chunked_vs_dense", attn_chunk=MODELS_ATTN_CHUNK,
+         act_dtype="float32", weights="bfloat16", deterministic=True,
+         rel=rel, tol=CHUNKED_TOL, bf16_rel=bf16_rel)
+    assert rel <= CHUNKED_TOL, ("chunked vs dense prefill", rel)
+    del pair
+    assert flash_attention.launches == 0, "MLA takes the plain path"
+    serve = make_serve_step(cfg)
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    toks = [nxt]
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        nxt, caches = serve(params, {"tokens": nxt[:, None], "caches": caches,
+                                     "pos": S + i})
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    toks = torch.stack(toks, 1)
+    assert bool(((toks >= 0) & (toks < cfg.padded_vocab)).all())
+    del caches, logits
+    srv = GroupServer(cfg, params, batch_slots=4, device="cuda")
+    rng = np.random.default_rng(0)
+    for rid in range(12):
+        srv.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg.vocab, 8, dtype=np.int32), max_new=4 + rid % 5))
+    t0 = time.perf_counter()
+    while srv.step():
+        pass
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    want = sum(4 + rid % 5 for rid in range(12))
+    assert srv.members_served == want and not srv.queue \
+        and all(r is None for r in srv.active), (srv.members_served, want)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    emit("models", check="full_width", arch=MODELS_ARCH, params=n_params,
+         param_gib=n_params * 2 / 2**30, dtype="bfloat16", batch=B,
+         seq_len=S, init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=B * S / prefill_s, decode_steps=DECODE_STEPS,
+         decode_ms_per_step=1e3 * decode_s / DECODE_STEPS,
+         serve_requests=12, serve_slots=4, serve_steps=srv.steps_fired,
+         serve_tokens=srv.members_served, serve_s=serve_s,
+         peak_memory_gib=peak_gb, tokens=toks[0, :8].tolist())
+    del params, srv
+    torch.cuda.empty_cache()
+
+    # the nine other architectures at their smoke configs, f32
+    expected = 0
+    for arch in SMOKE_ARCHS:
+        a_cfg = get_config(arch, smoke=True)
+        got = _arch_run(arch, seed, "cuda")
+        want = cpu_runs[arch].result()
+        errs = []
+        for name in ("default", "cf8"):
+            for x, y in zip(want[name], got[name]):
+                assert x.shape == y.shape, (arch, name, x.shape, y.shape)
+                errs.append(float(np.abs(x - y).max())
+                            / (float(np.abs(x).max()) + 1e-6))
+        full, dec = got["full"], got["cf8"][1][:, 0]
+        consistency = float(np.abs(full - dec).max()) / (
+            float(np.abs(full).max()) + 1e-6)
+        n_glob = _n_global(a_cfg)
+        emit("models", check="arch_vs_cpu", arch=arch,
+             family=a_cfg.family, tensors=len(errs),
+             max_rel_err_vs_cpu=max(errs), decode_vs_full_rel=consistency,
+             tol=2e-4, flash_launches=got["launches"],
+             global_layers=n_glob)
+        assert max(errs) < 2e-4, (arch, "card vs CPU", max(errs))
+        assert consistency < 2e-4, (arch, "decode vs full", consistency)
+        # two prefills (default and capacity factor 8) through the kernel
+        assert got["launches"] == 2 * n_glob, (arch, got["launches"])
+        assert want["launches"] == 0, "the CPU runs the plain version"
+        expected += got["launches"]
+    emit("models", check="wall", seconds=time.perf_counter() - t_phase)
+    return expected
+
+
 def _rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -1450,6 +1747,88 @@ def gpu_query(*fields: str) -> dict:
         check=True)
     values = smi.stdout.strip().splitlines()[0].split(", ")
     return dict(zip(fields, values))
+
+
+GEMMA3_ARCH = "gemma3-12b"
+
+
+def sdpa_library_run(q, k, v):
+    """``fn() -> (B, S, H, D)``: one scaled_dot_product_attention call on
+    (B, H, S, D) copies of q, k and v (causal, GQA), on a fused backend
+    (flash, memory-efficient or cuDNN), and the call's description."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+
+    def run():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    return run, ("scaled_dot_product_attention(is_causal=True, "
+                 "enable_gqa=True), fused backends")
+
+
+def flash_gemma3(gen, rates) -> dict:
+    """gemma3-12b's global-layer attention at a prefill of 8,192 tokens
+    (B=1, H=16, K=8, D=240, bf16, causal) on the FMA kernel (the wgmma
+    kernel has no D = 240 instance): against the plain version (both in f32
+    arithmetic on the same inputs: SAME_INPUTS_TOL), then kernel and SDPA
+    timed in turns, the plain version once. ``launches_per_prefill`` is
+    gemma3-12b's global layers, one launch each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention, route)
+    g3 = get_config(GEMMA3_ARCH)
+    B, S, H, K, D = 1, 8_192, g3.n_heads, g3.n_kv_heads, g3.hd
+    q = _rand(gen, (B, S, H, D), torch.bfloat16)
+    k, v = (_rand(gen, (B, S, K, D), torch.bfloat16) for _ in range(2))
+    assert route(q, k, v) == "fma"
+    before = flash_attention.launches_by_route["fma"]
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches_by_route["fma"] == before + 1
+    want = bf16_chunked(q, k, v, attention_ref)
+    err = float((got - want).abs().max())
+    emit("flash", check="vs_plain_gemma3_shape", shape=[B, S, S, H, K, D],
+         dtype="torch.bfloat16", kernel_route="fma", max_abs_err=err,
+         tol=SAME_INPUTS_TOL)
+    torch.testing.assert_close(got, want, rtol=SAME_INPUTS_TOL,
+                               atol=SAME_INPUTS_TOL)
+    del got, want
+    library_run, library_call = sdpa_library_run(q, k, v)
+
+    def kernel_run():
+        return flash_attention(q, k, v)
+    turns = [(fn, cuda_ms(fn, reps=10)) for fn in
+             (kernel_run, library_run, library_run, kernel_run)]
+    kernel_runs = [t for fn, t in turns if fn is kernel_run]
+    library_runs = [t for fn, t in turns if fn is library_run]
+    plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
+    bw, f32_peak, bf16_peak = rates
+    pairs = B * S * (S + 1) // 2
+    flops = 4 * H * D * pairs
+    nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    kernel_ms = sum(kernel_runs) / 2
+    row = {"name": "flash_attention", "route": "cuda", "kernel_route": "fma",
+           "arch": GEMMA3_ARCH,
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+           "launches_per_prefill": _n_global(g3), "max_abs_err": err,
+           "ms": kernel_ms, "kernel_ms_runs": kernel_runs,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": sum(library_runs) / 2,
+           "library_ms_runs": library_runs, "library_call": library_call,
+           "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+           "f32_cores_bound_ms": flops / f32_peak * 1e3,
+           "card_after_timing": gpu_query("clocks.sm", "clocks.max.sm",
+                                          "power.draw", "power.limit"),
+           "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
+                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
+    emit("flash", check="gemma3_shape", **row)
+    return row
 
 
 def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
@@ -1564,21 +1943,10 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     assert e["ok"], ("wgmma kernel vs plain at the main path's shape", e)
     del got, want
 
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    import torch.nn.functional as F
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
-             SDPBackend.CUDNN_ATTENTION]
-    library_call = ("scaled_dot_product_attention(is_causal=True, "
-                    "enable_gqa=True), fused backends")
+    library_run, library_call = sdpa_library_run(q, k, v)
 
     def kernel_run():
         return flash_attention(q, k, v)
-
-    def library_run():
-        with sdpa_kernel(fused):
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
     # in turns on one card: kernel, library, library, kernel
     turns = [(fn, cuda_ms(fn, reps=20)) for fn in
              (kernel_run, library_run, library_run, kernel_run)]
@@ -1630,6 +1998,7 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
                      "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
                      "exp2": pairs * H}}
     emit("flash", check="main_path_shape", **row)
+    row["gemma3_d240"] = flash_gemma3(gen, rates)
     return row
 
 
@@ -1717,6 +2086,25 @@ def main() -> int:
     assert by_route == {"wgmma": cfg.n_layers, "fma": 0}, \
         ("a bf16 prefill's flash launches all take the wgmma route", by_route)
     lap("model")
+
+    # every other family's serving path, counted the same way; the smoke
+    # architectures' CPU halves run in worker processes meanwhile
+    with worker_pool(CHECK_WORKERS) as pool:
+        cpu_runs = {a: pool.submit(_arch_cpu_run, a, args.seed)
+                    for a in SMOKE_ARCHS}
+        zero_counts()
+        models_launches = phase_models(args.seed, cpu_runs)
+        torch.cuda.synchronize()
+    emit("models_path", launches={
+        "segment_sums": segment_sums.launches,
+        "flash_attention": flash_attention.launches,
+        "flash_attention_by_route": dict(flash_attention.launches_by_route)})
+    assert flash_attention.launches == models_launches > 0, \
+        ("flash launches of the models phase", flash_attention.launches,
+         models_launches)
+    assert flash_attention.launches_by_route["fma"] == models_launches, \
+        "the smoke architectures run in f32: every launch is the FMA kernel's"
+    lap("models")
 
     # engine_invariants' two packs and engine_vs_cpu's CPU half run in
     # worker processes while this process runs engine_vs_cpu's card half

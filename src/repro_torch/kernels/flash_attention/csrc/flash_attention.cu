@@ -43,6 +43,10 @@
 //  * GQA by index: head h reads kv head h / (H / K); K and V are never
 //    repeated. Query tiles are issued last-first, so the longest causal
 //    rows start first.
+//  * Head dims 16, 32, 64, 128 and 240 (gemma3's global layers). At 240 a
+//    row's 240 output columns are 8 lanes x 15 float2 vectors, and the
+//    shared tiles take (64*244 + 2*64*244 + 64*68)*4 = 204,800 bytes of the
+//    227 KB an SM offers.
 // The launch allocates nothing; the caller passes the output buffer.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,8 +103,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int H, int KH, int Sq, int Sk, const Strides st,
                  float scale, int causal) {
   constexpr int LD = D + 4;
-  constexpr int VEC = D >= 32 ? 4 : 2;   // output columns per vector
+  // output columns per vector: 8 lanes x VEC columns must tile D exactly
+  // (gemma3's D = 240 takes VEC 2, NV 15)
+  constexpr int VEC = D % 32 == 0 ? 4 : 2;
   constexpr int NV = D / (8 * VEC);      // vectors per row per thread
+  static_assert(D % (8 * VEC) == 0, "8 lanes x VEC columns must tile D");
+  static_assert(D % 4 == 0, "tiles are staged as float4");
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                 // [BQ][LD]
   float* sk = sq + BQ * LD;         // [BK][LD]
@@ -302,6 +310,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(128)
+    FLASH_CASE(240)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -18,7 +18,7 @@ import torch
 from ..nvcc_build import build_library, load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128)       # the .cu's template instances
+HEAD_DIMS = (16, 32, 64, 128, 240)  # the .cu's template instances
 DTYPES = (torch.float32, torch.bfloat16)
 
 _lib = None

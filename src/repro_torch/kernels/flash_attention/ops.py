@@ -27,7 +27,8 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
       dim 64 or 128;
     * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
       for float32 inputs, which keep the reference's 2e-6 bar, and for bf16
-      at head dims 16 and 32, which only the reference's test shapes use.
+      at head dims 16 and 32 (the reference's test shapes) and 240
+      (gemma3-12b's global layers).
     """
     if q.dtype == torch.bfloat16 and q.shape[-1] in kernel_sm90.HEAD_DIMS:
         return "wgmma"
@@ -44,6 +45,24 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
             and all(s * size % 16 == 0 for s in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the kernels take these shapes: q
+    (B, Sq, H, D), k and v (B, Sk, K, D) with D one of the FMA kernel's head
+    dims (:data:`kernel.HEAD_DIMS`), H a multiple of K and Sk > 0."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: need q (B, Sq, H, D) and k/v "
+                         f"(B, Sk, K, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if D not in kernel.HEAD_DIMS or K == 0 or H % K or Sk == 0 \
+            or max(B, H) > 65535 or max(Sq, Sk) >= 2**31:
+        raise ValueError(f"flash_attention: unsupported sizes B={B} Sq={Sq} "
+                         f"Sk={Sk} H={H} K={K} D={D} (D in "
+                         f"{kernel.HEAD_DIMS}, H % K == 0, Sk > 0)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,18 +83,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_attention: q, k and v must share a dtype in "
                         f"{kernel.DTYPES}, got {q.dtype}, {k.dtype} and "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"flash_attention: need q (B, Sq, H, D) and k/v "
-                         f"(B, Sk, K, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    check_shapes(q, k, v)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if D not in kernel.HEAD_DIMS or K == 0 or H % K or Sk == 0 \
-            or max(B, H) > 65535 or max(Sq, Sk) >= 2**31:
-        raise ValueError(f"flash_attention: unsupported sizes B={B} Sq={Sq} "
-                         f"Sk={Sk} H={H} K={K} D={D} (D in "
-                         f"{kernel.HEAD_DIMS}, H % K == 0, Sk > 0)")
     scale = scale if scale is not None else D ** -0.5
     path = route(q, k, v)
     if path == "wgmma" and (scale < 0 or -(-Sq // kernel_sm90.BLOCK_Q)

@@ -9,7 +9,11 @@ the whole conflict group, and finished requests leave in arrival order.
 
 As in the reference, the server decodes every slot from one shared
 position counter starting at 0, feeding each request's last prompt token
-(no prefill of the prompt).
+(no prefill of the prompt), and a slot's cache and recurrent state carry
+over from one request to the next. It feeds token ids, so it serves the
+token-input architectures; the embedding-input ones (musicgen, qwen2-vl)
+are served through ``prefill``/``decode_step`` with ``embeds``, as in the
+reference.
 
     python -m repro_torch.launch.serve [--arch A] [--requests N] [--slots S]
 """
@@ -45,6 +49,9 @@ class GroupServer:
 
     def __init__(self, cfg, params, batch_slots: int = 4,
                  max_len: int = 256, device=None):
+        if not cfg.embed_inputs:
+            raise ValueError(f"GroupServer feeds token ids; {cfg.name} takes "
+                             "embeddings: use prefill/decode_step with embeds")
         self.device = resolve(device)
         self.cfg = cfg
         self.params = params

@@ -1,6 +1,6 @@
-"""Model substrate of the port: functional layers, GQA attention and LM
-assembly (dense GQA blocks; see ``attention`` and ``transformer`` for what
-is not ported yet)."""
+"""Model substrate of the port: functional layers, the mixers (GQA global
+and sliding-window attention, MLA, RG-LRU, SSD), MoE and LM assembly for
+serving (train-mode logits, prefill, decode; the loss is not ported yet)."""
 from .common import (ParamSpec, spec, init_params, count_params, is_spec,
                      tree_map_specs, tree_leaves)
 from .lm import lm_spec, forward, prefill, decode_step, LMOutput

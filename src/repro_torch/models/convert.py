@@ -1,13 +1,16 @@
-"""Carry model weights and KV caches across packages as numpy arrays.
+"""Carry model weights and decode caches across packages as numpy arrays.
 
 The reference stacks each layer group's parameters and caches on a leading
 "layers" axis (``lax.scan``); the port keeps a list with one entry per
 layer. :func:`params_from_numpy` takes the reference's parameter tree as
 numpy arrays (``jax.device_get(init_params(lm_spec(cfg), key))``) and
-returns the port's; :func:`caches_from_numpy` does the same for a cache tree
+returns the port's (the 3-D codebook head and MoE's 3-D expert weights are
+carried as they are); :func:`caches_from_numpy` does the same for a cache
+tree of ``KVCache``, ``MLACache``, ``RGLRUState`` and ``SSDState`` leaves
 and :func:`caches_to_numpy` goes back to the reference's stacked layout, so
 both packages can run from, and be compared on, the same weights and caches.
-Only the objects' structure is read, so nothing here imports the reference.
+Only the objects' structure (a cache's class name and fields) is read, so
+nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -15,7 +18,13 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from .attention import KVCache
+from .attention import KVCache, MLACache
+from .rglru import RGLRUState
+from .ssd import SSDState
+
+# the port's cache classes, by the name they share with the reference's
+CACHE_TYPES = {c.__name__: c for c in (KVCache, MLACache, RGLRUState,
+                                       SSDState)}
 
 
 def _tensor(a, dev, dtype=None) -> torch.Tensor:
@@ -61,22 +70,31 @@ def params_from_numpy(tree, device=None, dtype=None):
 
 
 def caches_from_numpy(tree, device=None):
-    """The reference's cache tree ``{g: {u: KVCache(k=(L, B, S, K, D),
-    v=...)}}`` with numpy leaves -> the port's ``{g: {u: [KVCache]}}``."""
+    """The reference's cache tree ``{g: {u: Cache(field=(L, B, ...), ...)}}``
+    with numpy leaves (``Cache`` one of ``KVCache``, ``MLACache``,
+    ``RGLRUState``, ``SSDState``) -> the port's ``{g: {u: [Cache]}}``."""
     dev = resolve(device)
-    return {g: {u: [KVCache(k=_tensor(c.k[r], dev), v=_tensor(c.v[r], dev))
-                    for r in range(np.shape(c.k)[0])]
-                for u, c in gt.items()}
+
+    def layers(c):
+        cls = CACHE_TYPES[type(c).__name__]
+        n = np.shape(c[0])[0]
+        return [cls(*(_tensor(f[r], dev) for f in c)) for r in range(n)]
+
+    return {g: {u: layers(c) for u, c in gt.items()}
             for g, gt in tree.items()}
 
 
 def caches_to_numpy(caches):
-    """The port's cache tree -> the reference's stacked layout, with numpy
-    float32 leaves (bfloat16 widened exactly)."""
+    """The port's cache tree -> the reference's stacked layout (the port's
+    cache classes, one (L, ...) array a field), with numpy float32 leaves
+    (bfloat16 widened exactly)."""
     def host(t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    return {g: {u: KVCache(k=np.stack([host(c.k) for c in layers]),
-                           v=np.stack([host(c.v) for c in layers]))
-                for u, layers in gt.items()}
+    def stacked(layers):
+        cls = type(layers[0])
+        return cls(*(np.stack([host(c[i]) for c in layers])
+                     for i in range(len(cls._fields))))
+
+    return {g: {u: stacked(layers) for u, layers in gt.items()}
             for g, gt in caches.items()}

@@ -1,8 +1,9 @@
-"""Shared layers: RMSNorm, SiLU-gated MLP, rotary embeddings, embedding.
+"""Shared layers: RMSNorm, SiLU-gated MLP, rotary embeddings (and qwen2-vl's
+M-RoPE), embedding and the output head (musicgen's codebook heads too).
 
-The reference's ``repro.models.layers`` minus ``apply_mrope`` (qwen2-vl's
-M-RoPE, not ported yet). Functions take a parameter dict and tensors;
-weights are cast to the activation's dtype at use, as in the reference.
+The reference's ``repro.models.layers``. Functions take a parameter dict and
+tensors; weights are cast to the activation's dtype at use, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -65,6 +66,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                theta: float = 1e4, sections=(16, 24, 24)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: rotary over 3 position streams (t, h, w).
+
+    x: (B, S, H, D); positions3: (3, B, S). ``sections`` are per-stream
+    frequency-pair counts summing to D/2 at D = 128; they are scaled to D/2
+    in integers (``sections * (D/2) // sum``), and a slot past the last
+    section (rounding) takes position 0, as in the reference.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    dev = x.device
+    freqs = rope_freqs(d, theta, dev)                            # (half,)
+    # partition the half-dim frequency slots into the 3 sections
+    sec = torch.tensor(sections, dtype=torch.int32, device=dev)
+    sec = (sec * half) // sec.sum()
+    bounds = torch.cumsum(sec, 0)
+    lo = torch.cat([bounds.new_zeros(1), bounds[:-1]])
+    slot = torch.arange(half, device=dev)
+    which = (slot[None, :] >= lo[:, None]) & \
+        (slot[None, :] < bounds[:, None])                        # (3, half)
+    # per-slot position: pick the stream owning this slot
+    pos = torch.einsum("kbs,kf->bsf", positions3.to(torch.float32),
+                       which.to(torch.float32))                  # (B, S, half)
+    ang = pos[..., None, :] * freqs                              # (B, S, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # -------------------------------------------------------------- embedding
 
 def embed_spec(vocab: int, d: int):
@@ -75,11 +107,18 @@ def embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens]
 
 
-def unembed_spec(d: int, vocab: int):
-    """One output head (the reference's multi-codebook heads are musicgen's,
-    not ported)."""
+def unembed_spec(d: int, vocab: int, n_heads: int = 1):
+    """One output head, or ``n_heads`` > 1 parallel heads (musicgen's
+    codebooks) as one (K, d, V) weight."""
+    if n_heads > 1:
+        return {"w": spec((n_heads, d, vocab), (None, "embed", "vocab"),
+                          fan_in_axes=(1,))}
     return {"w": spec((d, vocab), ("embed", "vocab"))}
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    """(..., d) -> (..., V), or (..., K, V) with codebook heads."""
+    w = p["w"]
+    if w.dim() == 3:
+        return torch.einsum("...d,kdv->...kv", x, w.to(x.dtype))
+    return x @ w.to(x.dtype)

@@ -2,6 +2,11 @@
 logits), ``prefill`` and ``decode`` (the reference's ``repro.models.lm``
 without the loss; training is not ported yet).
 
+``cfg.embed_inputs=False`` architectures (musicgen, qwen2-vl) take
+precomputed frame/patch embeddings (``embeds`` (B, S, d)) instead of token
+ids; musicgen emits ``n_codebooks`` parallel heads (logits (..., K, V));
+qwen2-vl takes the M-RoPE position streams ``positions3`` (3, B, S).
+
 The entry points take ``device=None`` (the CUDA card; see
 :mod:`repro_torch.device`) and expect the parameters to lie there
 (:func:`repro_torch.models.common.init_params` with the same ``device``).
@@ -24,14 +29,16 @@ def lm_spec(cfg):
         s["embed"] = embed_spec(cfg.padded_vocab, cfg.d_model)
     s["blocks"] = lm_block_specs(cfg)
     s["ln_f"] = rmsnorm_spec(cfg.d_model)
-    s["head"] = unembed_spec(cfg.d_model, cfg.padded_vocab)
+    s["head"] = unembed_spec(cfg.d_model, cfg.padded_vocab,
+                             max(cfg.n_codebooks, 1))
     return s
 
 
 class LMOutput(NamedTuple):
     logits: torch.Tensor
     caches: Any
-    aux_loss: float            # 0.0: no MoE layers are ported
+    aux_loss: torch.Tensor     # f32 scalar: the MoE layers' summed
+                               # load-balance loss (0 without MoE)
 
 
 def _param_device(params, dev: torch.device) -> torch.device:
@@ -55,8 +62,10 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
     else:
         x = torch.as_tensor(embeds, device=dev)
     x = x.to(act_dtype)
+    if positions3 is not None:
+        positions3 = torch.as_tensor(positions3, device=dev)
 
-    aux_total = 0.0
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches = {}
     for gi, (unit, reps) in enumerate(cfg.layout):
         gkey = f"g{gi}"

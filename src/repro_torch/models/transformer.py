@@ -1,34 +1,53 @@
 """Block assembly and the layer-group loop (the reference's
-``repro.models.transformer``, dense GQA blocks only).
+``repro.models.transformer``).
 
+A block is ``(mixer, mlp)``: mixer ``global`` | ``local`` (GQA), ``mla``,
+``rglru`` or ``ssd``; mlp ``dense`` | ``moe`` | ``moe+dense`` | ``none``.
 The reference compiles each ``LayerGroup = (unit, repeats)`` as one
 ``lax.scan`` over parameters stacked on a leading "layers" axis. Here a
 group's parameters are a list with one dict per repeat, and
 :func:`group_apply_layers` is a Python loop over it; caches are lists of
-per-layer ``KVCache``s alongside.
+per-layer caches alongside (``KVCache``, ``MLACache``, ``RGLRUState``,
+``SSDState``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import resolve
-from .attention import gqa_spec, gqa_attend, gqa_cache_len, KVCache
+from .attention import (gqa_spec, gqa_attend, gqa_cache_len, KVCache,
+                        mla_spec, mla_attend, MLACache)
 from .layers import rmsnorm_spec, rmsnorm, mlp_spec, mlp
+from .moe import moe_spec, moe
+from .rglru import rglru_spec, rglru, RGLRUState
+from .ssd import ssd_spec, ssd, SSDState
+
+MIXERS = ("global", "local", "mla", "rglru", "ssd")
+MLPS = ("dense", "moe", "moe+dense", "none")
 
 
 # --------------------------------------------------------------- specs
 
 def block_spec(cfg, kind):
     mixer, mlp_kind = kind
-    if mixer != "global" or mlp_kind not in ("dense", "none"):
-        raise NotImplementedError(
-            f"block {kind!r}: only global GQA mixers with a dense MLP are "
-            "ported")
+    if mixer not in MIXERS or mlp_kind not in MLPS:
+        raise ValueError(f"unknown layer kind {kind!r}")
     d = cfg.d_model
-    s = {"ln1": rmsnorm_spec(d), "attn": gqa_spec(cfg)}
+    s = {"ln1": rmsnorm_spec(d)}
+    if mixer in ("global", "local"):
+        s["attn"] = gqa_spec(cfg)
+    elif mixer == "mla":
+        s["attn"] = mla_spec(cfg)
+    elif mixer == "rglru":
+        s["attn"] = rglru_spec(cfg)
+    else:
+        s["attn"] = ssd_spec(cfg)
     if mlp_kind != "none":
         s["ln2"] = rmsnorm_spec(d)
-        s["mlp"] = mlp_spec(d, cfg.d_ff)
+        if mlp_kind in ("dense", "moe+dense"):
+            s["mlp"] = mlp_spec(d, cfg.d_ff)
+        if mlp_kind in ("moe", "moe+dense"):
+            s["moe"] = moe_spec(cfg)
     return s
 
 
@@ -45,21 +64,46 @@ def lm_block_specs(cfg):
 
 # --------------------------------------------------------------- caches
 
-def lm_init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
-                  device=None):
-    """Zeroed decode caches for the whole model on ``device`` (default
-    CUDA): ``{g: {u: [KVCache per repeat]}}``."""
-    dev = resolve(device)
-
-    def layer(kind):
-        if kind[0] != "global":
-            raise NotImplementedError(f"cache for {kind!r} is not ported")
-        sh = (batch, gqa_cache_len(cfg, kind[0], seq_len), cfg.n_kv_heads,
+def block_init_cache(cfg, kind, batch: int, seq_len: int, dtype, dev):
+    """One layer's zeroed decode cache. Attention caches take ``dtype``;
+    the RG-LRU and SSD states are always f32, as in the reference."""
+    mixer = kind[0]
+    f32 = torch.float32
+    if mixer in ("global", "local"):
+        sh = (batch, gqa_cache_len(cfg, mixer, seq_len), cfg.n_kv_heads,
               cfg.hd)
         return KVCache(k=torch.zeros(sh, dtype=dtype, device=dev),
                        v=torch.zeros(sh, dtype=dtype, device=dev))
+    if mixer == "mla":
+        return MLACache(
+            ckv=torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=dev),
+            krope=torch.zeros((batch, seq_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=dev))
+    if mixer == "rglru":
+        w = cfg.lru_width
+        return RGLRUState(
+            h=torch.zeros((batch, w), dtype=f32, device=dev),
+            conv=torch.zeros((batch, cfg.conv_width - 1, w), dtype=f32,
+                             device=dev))
+    if mixer == "ssd":
+        return SSDState(
+            h=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), dtype=f32, device=dev),
+            conv=torch.zeros((batch, cfg.conv_width - 1,
+                              cfg.d_inner + 2 * cfg.ssm_state), dtype=f32,
+                             device=dev))
+    raise ValueError(f"unknown mixer {mixer!r}")
 
-    return {f"g{gi}": {f"u{i}": [layer(kind) for _ in range(reps)]
+
+def lm_init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
+                  device=None):
+    """Zeroed decode caches for the whole model on ``device`` (default
+    CUDA): ``{g: {u: [cache per repeat]}}``."""
+    dev = resolve(device)
+    return {f"g{gi}": {f"u{i}": [block_init_cache(cfg, kind, batch, seq_len,
+                                                  dtype, dev)
+                                 for _ in range(reps)]
                        for i, kind in enumerate(unit)}
             for gi, (unit, reps) in enumerate(cfg.layout)}
 
@@ -68,28 +112,43 @@ def lm_init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 def block_apply(p, x, cfg, kind, mode, cache=None, pos=None,
                 positions3=None, use_kernel=False, max_len=None):
-    """One block. Returns (x, new_cache, aux_loss); aux_loss is 0.0 (no MoE
-    layers are ported)."""
+    """One block. Returns (x, new_cache, aux_loss f32 scalar)."""
     mixer, mlp_kind = kind
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    out, ncache = gqa_attend(p["attn"], h, cfg, mixer, mode, cache=cache,
-                             pos=pos, positions3=positions3,
-                             use_kernel=use_kernel, max_len=max_len)
+    if mixer in ("global", "local"):
+        out, ncache = gqa_attend(p["attn"], h, cfg, mixer, mode, cache=cache,
+                                 pos=pos, positions3=positions3,
+                                 use_kernel=use_kernel, max_len=max_len)
+    elif mixer == "mla":
+        out, ncache = mla_attend(p["attn"], h, cfg, mode, cache=cache,
+                                 pos=pos, max_len=max_len)
+    elif mixer == "rglru":
+        out, ncache = rglru(p["attn"], h, cfg, mode, state=cache)
+    else:
+        out, ncache = ssd(p["attn"], h, cfg, mode, state=cache)
     x = x + out
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp_kind != "none":
         h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], h)
-    return x, ncache, 0.0
+        y = torch.zeros_like(x)
+        if "mlp" in p:
+            y = y + mlp(p["mlp"], h)
+        if "moe" in p:
+            ym, stats = moe(p["moe"], h, cfg)
+            aux = aux + stats.aux_loss
+            y = y + ym
+        x = x + y
+    return x, ncache, aux
 
 
 def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
                        positions3=None, use_kernel=False, max_len=None):
     """Run one layer group: ``p`` and ``caches`` are ``{u: [per repeat]}``.
 
-    Returns (x, new_caches|None, aux_sum)."""
+    Returns (x, new_caches|None, aux_sum f32 scalar)."""
     has_cache = mode in ("prefill", "decode")
     n_reps = len(p["u0"])
-    aux_sum = 0.0
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {f"u{i}": [] for i in range(len(unit))}
     for r in range(n_reps):
         for i, kind in enumerate(unit):

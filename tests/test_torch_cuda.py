@@ -3,8 +3,11 @@ against their plain versions, the engine on the card against its CPU run
 (single lanes, packs of lanes and segmented packs), a compacted sweep
 against the sort-then-cut one, a governed pack and an open-load serving
 pack against their CPU runs, traced runs against their CPU runs (and the
-tracer's record adding no host sync), the step profiler on the card, and
-the qwen2 serving path through the flash kernel against the plain path.
+tracer's record adding no host sync), the step profiler on the card, the
+qwen2 serving path through the flash kernel against the plain path, the
+FMA flash kernel at gemma3's head dim 240, and every other architecture's
+prefill and decode (and MoE's capacity drops) on the card against the
+CPU.
 This file imports no JAX, so it also runs on a GPU host without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -285,6 +288,118 @@ def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 200, 200, 16, 8, 240),   # gemma3-12b's global heads, ragged tiles
+    (2, 77, 130, 4, 2, 240),     # Sq < Sk
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_fma_head_dim_240_on_card(card, shape, dtype, tol, causal):
+    """gemma3's head dim takes the FMA kernel in both dtypes (the wgmma
+    kernel has no D = 240 instance): every one of the 240 columns is
+    written and matches the plain version."""
+    q, k, v = _flash_inputs(shape, dtype)
+    _check_flash(q, k, v, causal, tol, "fma")
+
+
+def _to(tree, dev):
+    """A parameter or cache tree (dicts, lists, NamedTuples) on ``dev``."""
+    if isinstance(tree, dict):
+        return {key: _to(val, dev) for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [_to(val, dev) for val in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(val, dev) for val in tree))
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for val in tree.values() for x in _leaves(val)]
+    if isinstance(tree, (list, tuple)):
+        return [x for val in tree for x in _leaves(val)]
+    return [tree]
+
+
+NEW_ARCHS = ["deepseek-coder-33b", "gemma3-12b", "command-r-35b",
+             "arctic-480b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
+             "musicgen-medium", "qwen2-vl-2b", "mamba2-1.3b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_arch_prefill_and_decode_on_card_equal_cpu(card, arch):
+    """Each architecture's smoke config in f32 on the same weights: the
+    card's prefill (kernel path: one launch per global layer) and decode
+    step against the CPU's, logits and caches within 2e-4 relative."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import (lm_spec, init_params, prefill,
+                                    decode_step)
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              act_dtype="float32")
+    cpu = init_params(lm_spec(cfg), 1, device="cpu")
+    params = _to(cpu, "cuda")
+    rng = np.random.default_rng(2)
+    B, S = 2, 24
+    if cfg.embed_inputs:
+        inp = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (B, S + 1), dtype=np.int32))}
+    else:
+        inp = {"embeds": torch.from_numpy(rng.normal(
+            size=(B, S + 1, cfg.d_model)).astype(np.float32))}
+    if cfg.mrope:
+        inp["positions3"] = torch.from_numpy(np.sort(rng.integers(
+            0, 3 * S, (3, B, S + 1)), axis=-1).astype(np.int32))
+
+    def cut(sl):
+        return {k: (v[:, :, sl] if k == "positions3" else v[:, sl])
+                for k, v in inp.items()}
+
+    n_global = sum(reps * sum(m == "global" for m, _ in unit)
+                   for unit, reps in cfg.layout)
+    out = {}
+    for dev, p in (("cpu", cpu), ("cuda", params)):
+        before = flash_attention.launches
+        lp, caches = prefill(p, cfg, use_kernel=True, max_len=S + 1,
+                             device=dev, **_to(cut(slice(0, S)), dev))
+        assert flash_attention.launches - before == \
+            (n_global if dev == "cuda" else 0)
+        ld, caches = decode_step(p, cfg, caches=caches, pos=S, device=dev,
+                                 **_to(cut(slice(S, S + 1)), dev))
+        out[dev] = [lp, ld] + _leaves(caches)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert a.shape == b.shape
+        err = float((a - b.cpu()).abs().max())
+        assert err <= 2e-4 * (float(a.abs().max()) + 1e-6), (arch, err)
+
+
+@pytest.mark.cuda
+def test_moe_drops_on_card_equal_cpu(card):
+    """deepseek-v2-lite's smoke MoE with 16 slots an expert for 96 tokens
+    (the default capacity factor would give 32), so that tokens drop: the
+    card routes, counts and drops exactly as the CPU, and the combine
+    (index_add_) agrees to rounding."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import moe, moe_spec
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b", smoke=True),
+                              act_dtype="float32")
+    p = init_params(moe_spec(cfg), 3, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 48, cfg.d_model)).astype(np.float32))
+    y, st = moe(p, x, cfg, cap=16)
+    yc, stc = moe(_to(p, "cuda"), x.cuda(), cfg, cap=16)
+    assert int(st.dropped) == int(stc.dropped) > 0
+    assert torch.equal(st.expert_counts, stc.expert_counts.cpu())
+    torch.testing.assert_close(yc.cpu(), y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stc.aux_loss.cpu(), st.aux_loss, rtol=1e-6,
+                               atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -72,6 +72,16 @@ def test_default_device_needs_cuda(no_cuda):
         flash_attention(q, q, q)
     logits, _ = prefill(params, cfg, tokens=tokens, device="cpu")
     assert logits.shape == (1, 1, cfg.padded_vocab)
+    # every other family's serving path: MLA + MoE, and the recurrent caches
+    from repro_torch.models import lm_init_cache
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    params = init_params(lm_spec(cfg), 0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prefill(params, cfg, tokens=tokens)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_init_cache(get_config("mamba2-1.3b", smoke=True), 1, 4)
+    logits, _ = prefill(params, cfg, tokens=tokens, device="cpu")
+    assert logits.shape == (1, 1, cfg.padded_vocab)
     # the governor and the serving layer
     from repro_torch.adaptive import FixedPolicy, GovernorCell, run_governed
     from repro_torch.core.lock import stationary
@@ -133,6 +143,23 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
                  (qm.half(), meta.half(), meta.half())]:
         with pytest.raises((RuntimeError, ValueError, TypeError)):
             flash_attention(*args)
+    assert flash_attention.launches == before
+    # the head dims the kernels have (240: gemma3-12b's global layers, on
+    # the FMA kernel) pass the shape check; others raise before a launch
+    from repro_torch.kernels.flash_attention.ops import check_shapes, route
+    for D in (16, 32, 64, 128, 240):
+        qd = torch.zeros((1, 5, 4, D), device="meta", dtype=torch.bfloat16)
+        kd = torch.zeros((1, 7, 2, D), device="meta", dtype=torch.bfloat16)
+        check_shapes(qd, kd, kd)
+        assert route(qd, kd, kd) == ("wgmma" if D in (64, 128) else "fma")
+    for D in (8, 48, 96, 256):
+        qd = torch.zeros((1, 5, 4, D), device="meta")
+        kd = torch.zeros((1, 7, 2, D), device="meta")
+        with pytest.raises(ValueError, match="unsupported sizes"):
+            check_shapes(qd, kd, kd)
+    q240, kv240 = torch.randn((1, 5, 4, 240)), torch.randn((1, 7, 2, 240))
+    torch.testing.assert_close(flash_attention(q240, kv240, kv240),
+                               attention_ref(q240, kv240, kv240))
     assert flash_attention.launches == before
 
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_config as ref_get_config
+from repro.configs import get_config as ref_get_config, ARCHS as ref_archs
 from repro.launch.serve import (GroupServer as RefGroupServer,
                                 Request as RefRequest)
 from repro.models import (lm_spec as ref_lm_spec,
@@ -23,14 +23,13 @@ from repro.models import layers as ref_layers
 from repro.models.attention import (gqa_spec as ref_gqa_spec,
                                     gqa_attend as ref_gqa_attend)
 from repro.models.common import init_params as ref_init_tree
-from repro_torch.configs import get_config, ARCHS, UNPORTED
+from repro_torch.configs import get_config, ARCHS
 from repro_torch.launch.serve import GroupServer, Request
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import (lm_spec, init_params, count_params,
                                 forward, prefill, decode_step, tree_leaves)
 from repro_torch.models import layers
-from repro_torch.models.attention import gqa_attend, gqa_cache_len, KVCache
-from repro_torch.models.transformer import block_spec
+from repro_torch.models.attention import gqa_attend, KVCache
 from repro_torch.models.convert import (params_from_numpy,
                                         caches_from_numpy, caches_to_numpy)
 from repro_torch.kernels.flash_attention import flash_attention
@@ -83,27 +82,22 @@ def _rel(a, b):
 
 # --------------------------------------------------------------- configs
 
-def test_config_is_the_reference_config():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_is_the_reference_config(arch):
+    assert ARCHS == ref_archs
     for smoke in (False, True):
-        assert get_config(ARCH, smoke) .__dict__ == \
-            ref_get_config(ARCH, smoke).__dict__
-    full = get_config(ARCH)
-    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
-            full.hd, full.d_ff, full.padded_vocab) == \
-        (24, 896, 14, 2, 64, 4864, 152_064)
-    assert full.param_count() == ref_get_config(ARCH).param_count()
+        assert get_config(arch, smoke).__dict__ == \
+            ref_get_config(arch, smoke).__dict__
+    full = get_config(arch)
+    assert full.param_count() == ref_get_config(arch).param_count()
     assert count_params(lm_spec(full)) == ref_count_params(
-        ref_lm_spec(ref_get_config(ARCH)))
-    assert ARCHS == (ARCH,)
-
-
-@pytest.mark.parametrize("name", ["gemma3-12b", "mamba2-1.3b"])
-def test_unported_arch_raises_naming_the_ported(name):
-    assert name in UNPORTED
-    with pytest.raises(KeyError, match="not ported yet.*qwen2-0.5b"):
-        get_config(name)
+        ref_lm_spec(ref_get_config(arch)))
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
+    if arch == ARCH:
+        assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+                full.hd, full.d_ff, full.padded_vocab) == \
+            (24, 896, 14, 2, 64, 4864, 152_064)
 
 
 # --------------------------------------------------------------- init
@@ -183,17 +177,6 @@ def test_gqa_attend_prefill_and_decode_match_reference(use_kernel):
                        cache=cb, pos=S)
     np.testing.assert_allclose(b.numpy(), a, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(cb.k.numpy(), ca.k, rtol=1e-5, atol=1e-5)
-
-
-def test_unported_mixers_raise():
-    cfg = _cfg()
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        gqa_attend({}, x, cfg, "local", "prefill")
-    with pytest.raises(NotImplementedError):
-        gqa_cache_len(cfg, "local", 4)
-    with pytest.raises(NotImplementedError):
-        block_spec(cfg, ("local", "dense"))
 
 
 # --------------------------------------------------------------- model
