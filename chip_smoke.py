@@ -9,7 +9,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   build             nvcc build of every kernel (segment_sums.cu,
                     flash_attention.cu and flash_attention_sm90.cu, one nvcc
                     each, started together); ptxas's registers and spills
-                    of the wgmma flash kernel's instances
+                    of the wgmma flash kernel's instances (D = 64, 128, 240)
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -162,11 +162,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     |logit|; f32 prefill-then-decode against the full
                     forward within 2e-4); at the main path's shape the same
                     bf16 bar, then kernel and SDPA timed in turns (kernel,
-                    library, library, kernel), the FMA kernel once in f32;
-                    gemma3-12b's global-layer shape (B=1, S=8,192, H=16,
-                    K=8, D=240, bf16, causal) on the FMA kernel against its
-                    plain version (1e-5), then timed beside SDPA (in turns)
-                    and its bound
+                    library, library, kernel), and the f32 route (FMA
+                    kernel) beside SDPA on the same f32 inputs, in turns,
+                    with its f32 bound. gemma3-12b at full width (d 3840,
+                    16/8 heads of 240, vocab 262,144; bf16 weights from
+                    --seed) cut to one unit of its layout (5 local + 1
+                    global, of 48 layers): one bf16 prefill of 4,096 tokens
+                    on the kernel path (one wgmma launch, counted from 0),
+                    the plain path and the f32 kernel path, held to the bars
+                    of qwen2's bf16 path check. gemma3-12b's global-layer
+                    shape (B=1, S=8,192, H=16, K=8, D=240, bf16, causal) on
+                    the wgmma kernel's D = 240 instance against the plain
+                    version (the bf16 bar and the split's bound), then timed
+                    beside SDPA (in turns), its bound and the FMA kernel's
+                    D = 240 instance on the same inputs (the route before
+                    it: checked at 1e-5, timed once); ptxas's registers and
+                    spills of the D = 240 instance (no spill allowed)
 
 ``--fig15-horizon TICKS`` runs only the card check (gpu) and fig15's
 skew_ramp scenario (benchmarks/fig15_adaptive.py: Zipf txn_len 4, R=8192,
@@ -1752,83 +1763,189 @@ def gpu_query(*fields: str) -> dict:
 GEMMA3_ARCH = "gemma3-12b"
 
 
-def sdpa_library_run(q, k, v):
-    """``fn() -> (B, S, H, D)``: one scaled_dot_product_attention call on
+def sdpa_library_run(q, k, v, gqa: bool = True):
+    """``fn() -> (B, H, S, D)``: one scaled_dot_product_attention call on
     (B, H, S, D) copies of q, k and v (causal, GQA), on a fused backend
-    (flash, memory-efficient or cuDNN), and the call's description."""
+    (flash, memory-efficient or cuDNN), and the call's description. With
+    ``gqa=False`` the copies of k and v repeat each kv head H/K times (made
+    here, outside the call), for backends without ``enable_gqa`` (f32 runs
+    only on the memory-efficient one)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     import torch.nn.functional as F
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if not gqa:
+        G = q.shape[2] // k.shape[2]
+        kt, vt = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.CUDNN_ATTENTION]
 
     def run():
         with sdpa_kernel(fused):
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    return run, ("scaled_dot_product_attention(is_causal=True, "
-                 "enable_gqa=True), fused backends")
+                                                  enable_gqa=gqa)
+    return run, (f"scaled_dot_product_attention(is_causal=True, "
+                 f"enable_gqa={gqa}), fused backends"
+                 + ("" if gqa else ", kv heads repeated beforehand"))
 
 
-def flash_gemma3(gen, rates) -> dict:
+def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
     """gemma3-12b's global-layer attention at a prefill of 8,192 tokens
-    (B=1, H=16, K=8, D=240, bf16, causal) on the FMA kernel (the wgmma
-    kernel has no D = 240 instance): against the plain version (both in f32
-    arithmetic on the same inputs: SAME_INPUTS_TOL), then kernel and SDPA
-    timed in turns, the plain version once. ``launches_per_prefill`` is
-    gemma3-12b's global layers, one launch each."""
+    (B=1, H=16, K=8, D=240, bf16, causal) on the wgmma kernel's D = 240
+    instance: against the plain version (ref.bf16_errors with the split's
+    bound), then kernel and SDPA timed in turns, the plain version once,
+    and the FMA kernel's D = 240 instance (the route before it, called
+    directly: ``route`` no longer reaches it in bf16) once on the same
+    inputs, checked against the plain version (SAME_INPUTS_TOL) and timed as
+    ``earlier_ms``. ``launches`` is the wgmma launches of the cut-depth
+    gemma3 path (:func:`gemma3_path`); ``launches_per_prefill`` the full
+    model's global layers, one launch each."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention, route)
+    from repro_torch.kernels.flash_attention import (
+        attention_bf16p_model, attention_ref, flash_attention, kernel,
+        kernel_sm90, route)
+    from repro_torch.kernels.flash_attention.ref import bf16_errors
     g3 = get_config(GEMMA3_ARCH)
     B, S, H, K, D = 1, 8_192, g3.n_heads, g3.n_kv_heads, g3.hd
     q = _rand(gen, (B, S, H, D), torch.bfloat16)
     k, v = (_rand(gen, (B, S, K, D), torch.bfloat16) for _ in range(2))
-    assert route(q, k, v) == "fma"
-    before = flash_attention.launches_by_route["fma"]
+    assert route(q, k, v) == "wgmma"
+    before = flash_attention.launches_by_route["wgmma"]
     got = flash_attention(q, k, v)
-    assert flash_attention.launches_by_route["fma"] == before + 1
+    assert flash_attention.launches_by_route["wgmma"] == before + 1
     want = bf16_chunked(q, k, v, attention_ref)
-    err = float((got - want).abs().max())
+    e = bf16_errors(got, want, bf16_chunked(q, k, v, attention_bf16p_model),
+                    v)
     emit("flash", check="vs_plain_gemma3_shape", shape=[B, S, S, H, K, D],
-         dtype="torch.bfloat16", kernel_route="fma", max_abs_err=err,
-         tol=SAME_INPUTS_TOL)
-    torch.testing.assert_close(got, want, rtol=SAME_INPUTS_TOL,
-                               atol=SAME_INPUTS_TOL)
-    del got, want
+         dtype="torch.bfloat16", kernel_route="wgmma", **e)
+    assert e["ok"], ("wgmma kernel vs plain at gemma3's shape", e)
+    out = torch.empty_like(got)
+    del got
+
+    def fma_run():
+        kernel.launch(q, k, v, out, True, D ** -0.5)
+        return out
+    fma_err = float((fma_run() - want).abs().max())
+    emit("flash", check="fma_vs_plain_gemma3_shape", kernel_route="fma",
+         max_abs_err=fma_err, tol=SAME_INPUTS_TOL)
+    assert fma_err <= SAME_INPUTS_TOL, ("FMA kernel at D = 240", fma_err)
+    del want
     library_run, library_call = sdpa_library_run(q, k, v)
 
     def kernel_run():
         return flash_attention(q, k, v)
     turns = [(fn, cuda_ms(fn, reps=10)) for fn in
              (kernel_run, library_run, library_run, kernel_run)]
+    card = gpu_query("clocks.sm", "clocks.max.sm", "power.draw",
+                     "power.limit")
     kernel_runs = [t for fn, t in turns if fn is kernel_run]
     library_runs = [t for fn, t in turns if fn is library_run]
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
+    earlier_ms = cuda_ms(fma_run, reps=2)
     bw, f32_peak, bf16_peak = rates
     pairs = B * S * (S + 1) // 2
     flops = 4 * H * D * pairs
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
     t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
     kernel_ms = sum(kernel_runs) / 2
-    row = {"name": "flash_attention", "route": "cuda", "kernel_route": "fma",
-           "arch": GEMMA3_ARCH,
+    inst = kernel_sm90.instance_name(D)
+    regs = [u for u in ptxas if inst in u["kernel"]]
+    assert len(regs) == 1, ("ptxas report of the D = 240 instance", inst)
+    emit("flash", check="ptxas_d240", **regs[0])
+    assert regs[0]["spill_store_bytes"] == 0, ("D = 240 spills", regs[0])
+    row = {"name": "flash_attention", "route": "cuda",
+           "kernel_route": "wgmma", "arch": GEMMA3_ARCH,
            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                     "flash_attention.cu",
-           "launches_per_prefill": _n_global(g3), "max_abs_err": err,
+                     "flash_attention_sm90.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+           "launches": launches, "launches_per_prefill": _n_global(g3),
+           "max_abs_err": e["max_abs"], "rms_err": e["rms"],
+           "model_max_abs_err": e["model_max_abs"],
+           "split_p_bound": e["split_p_bound"],
            "ms": kernel_ms, "kernel_ms_runs": kernel_runs,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": sum(library_runs) / 2,
            "library_ms_runs": library_runs, "library_call": library_call,
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
-           "f32_cores_bound_ms": flops / f32_peak * 1e3,
-           "card_after_timing": gpu_query("clocks.sm", "clocks.max.sm",
-                                          "power.draw", "power.limit"),
+           "split_p_bound_ms": 1.5 * flops / bf16_peak * 1e3,
+           "earlier_ms": earlier_ms, "earlier_max_abs_err": fma_err,
+           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_attention.cu (FMA, bf16 inputs)",
+           "ptxas": regs[0], "card_after_timing": card,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                      "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
     emit("flash", check="gemma3_shape", **row)
     return row
+
+
+# gemma3-12b at full width, its depth cut from 48 layers (8 units of 5 local
+# + 1 global) to one unit, and its prompt to one of 4,096 tokens
+GEMMA3_SEQ = 4_096
+
+
+def gemma3_path(seed: int) -> int:
+    """gemma3-12b's serving path at full width (d 3840, 16/8 heads of 240,
+    d_ff 15,360, vocab 262,144) with bf16 weights from ``seed``, cut to one
+    unit of its layout (5 local + 1 global): one bf16 prefill of 4,096
+    tokens on the kernel path (the global layer's attention on the wgmma
+    kernel, one launch: the counts are zeroed right before and read right
+    after), on the plain path, and on the kernel path with f32 activations
+    (the FMA kernel), held to qwen2's ``path_bf16`` bars. Returns the
+    wgmma launches of the bf16 kernel-path prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import ROUTES
+    from repro_torch.models import count_params, init_params, lm_spec, prefill
+    g3 = get_config(GEMMA3_ARCH)
+    (unit, reps), = g3.layout
+    cfg = dataclasses.replace(g3, layout=((unit, 1),))
+    B, S = 1, GEMMA3_SEQ
+    emit("flash", check="gemma3_cut", arch=GEMMA3_ARCH,
+         layers=len(unit), full_layers=len(unit) * reps,
+         params=count_params(lm_spec(cfg)), batch=B, seq_len=S,
+         note=f"depth cut from {len(unit) * reps} layers to one unit of "
+              f"its layout ({len(unit) - 1} local + 1 global); weights bf16")
+    params = init_params(lm_spec(cfg), seed, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    flash_attention.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lk, _ = prefill(params, cfg, tokens=toks, use_kernel=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    by_route = dict(flash_attention.launches_by_route)
+    emit("gemma3_path", launches={"flash_attention": flash_attention.launches,
+                                  "flash_attention_by_route": by_route})
+    assert by_route == {"wgmma": 1, "fma": 0}, (
+        "a bf16 gemma3 prefill: one wgmma launch (its global layer)",
+        by_route)
+    lp, _ = prefill(params, cfg, tokens=toks, use_kernel=False)
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    lf, _ = prefill(params, cfg32, tokens=toks, use_kernel=True)
+    assert flash_attention.launches_by_route["fma"] == 1
+    lk, lp, lf = lk.float(), lp.float(), lf.float()
+    assert lk.shape == (B, 1, cfg.padded_vocab) and bool(
+        torch.isfinite(lk).all()), "gemma3 prefill logits"
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    f32_scale = float(lf.abs().max())
+    k_rel = float((lk - lf).abs().max()) / f32_scale
+    p_rel = float((lp - lf).abs().max()) / f32_scale
+    emit("flash", check="gemma3_path_bf16", arch=GEMMA3_ARCH, batch=B,
+         seq_len=S, max_abs_err=err, max_abs_logit=scale, rel=err / scale,
+         tol=2e-2, kernel_vs_f32_rel=k_rel, plain_vs_f32_rel=p_rel,
+         rounding_margin=BF16_PATH_MARGIN, prefill_s=prefill_s,
+         prefill_tokens_per_s=B * S / prefill_s,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    assert err <= 2e-2 * scale, ("gemma3 bf16 kernel path", err, scale)
+    assert k_rel <= BF16_PATH_MARGIN * p_rel, ("gemma3 bf16 kernel path "
+                                               "farther from f32", k_rel,
+                                               p_rel)
+    del params
+    torch.cuda.empty_cache()
+    return by_route["wgmma"]
 
 
 def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
@@ -1957,9 +2074,22 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     kernel_ms = sum(kernel_runs) / 2
     library_ms = sum(library_runs) / 2
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
+    # the f32 route (FMA) and SDPA on the same f32 inputs, in turns
     qf, kf, vf = q.float(), k.float(), v.float()
     assert route(qf, kf, vf) == "fma"
-    earlier_ms = cuda_ms(lambda: flash_attention(qf, kf, vf), reps=1)
+
+    def fma_run():
+        return flash_attention(qf, kf, vf)
+    f32_library_run, f32_library_call = sdpa_library_run(qf, kf, vf,
+                                                         gqa=False)
+    f32_turns = [(fn, cuda_ms(fn, reps=r)) for fn, r in
+                 ((fma_run, 1), (f32_library_run, 3), (f32_library_run, 3),
+                  (fma_run, 1))]
+    f32_runs = [t for fn, t in f32_turns if fn is fma_run]
+    f32_library_runs = [t for fn, t in f32_turns if fn is f32_library_run]
+    f32_library_diff = float((f32_library_run().transpose(1, 2)
+                              - fma_run()).abs().max())
+    earlier_ms = sum(f32_runs) / 2
     del qf, kf, vf
     bw, f32_peak, bf16_peak = rates
     pairs = B * S * (S + 1) // 2              # (query, key) pairs attended
@@ -1989,16 +2119,27 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
            "exp_bound_ms": exp_bound_ms, "sm_clock_max_mhz": clock,
            "sms": n_sm, "card_after_timing": card,
-           "earlier_ms": earlier_ms,
+           "earlier_ms": earlier_ms, "earlier_ms_runs": f32_runs,
            "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
                              "flash_attention.cu (f32 inputs, FMA)",
            "f32_cores_bound_ms": flops / f32_peak * 1e3,
+           "f32_library_ms": sum(f32_library_runs) / 2,
+           "f32_library_ms_runs": f32_library_runs,
+           "f32_library_call": f32_library_call + " on f32 inputs",
+           "f32_library_vs_kernel_max_abs": f32_library_diff,
            "ptxas": regs[0] if regs else None,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                      "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
                      "exp2": pairs * H}}
     emit("flash", check="main_path_shape", **row)
-    row["gemma3_d240"] = flash_gemma3(gen, rates)
+    emit("flash", check="f32_route", kernel_ms=earlier_ms,
+         kernel_ms_runs=f32_runs, f32_cores_bound_ms=flops / f32_peak * 1e3,
+         library_ms=row["f32_library_ms"], library_ms_runs=f32_library_runs,
+         library_call=row["f32_library_call"],
+         library_vs_kernel_max_abs=f32_library_diff,
+         card=gpu_query("name", "power.limit"))
+    gemma3_launches = gemma3_path(seed)
+    row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas, gemma3_launches)
     return row
 
 

@@ -1,5 +1,5 @@
 """Flash attention: CUDA kernels (``ops.flash_attention``: wgmma for bf16 at
-head dims 64 and 128, float32 FMA otherwise; ``ops.route`` says which) and
+head dims 64, 128 and 240, float32 FMA otherwise; ``ops.route`` says which) and
 their plain versions (``ref.attention_ref``; ``ref.attention_bf16p_model``
 models the wgmma kernel's arithmetic)."""
 from .ops import flash_attention, route

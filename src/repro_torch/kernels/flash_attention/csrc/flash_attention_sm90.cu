@@ -4,7 +4,7 @@
 //   out[b, i, h, :] = softmax_j(q[b, i, h, :] . k[b, j, h / G, :] * scale)
 //                     . v[b, j, h / G, :]        with G = H / K
 //
-// q (B, Sq, H, D), k and v (B, Sk, K, D), bfloat16, D in {64, 128}, any
+// q (B, Sq, H, D), k and v (B, Sk, K, D), bfloat16, D in {64, 128, 240}, any
 // strides with the last dimension contiguous (strides a multiple of 8
 // elements, 16-byte-aligned bases: what a TMA tensor map takes). out
 // (B, Sq, H, D) float32 through its strides. The function is the one of
@@ -30,33 +30,40 @@
 //    2.16 ms at the 1650 MHz that nvidia-smi read as the kernel was timed.
 // Both are floors of the same order, so one warpgroup's softmax has to run
 // while another's wgmma does; the bytes (q, k, v read once, out written
-// once: 0.18 GB, 0.05 ms) are not a bound.
+// once: 0.18 GB, 0.05 ms) are not a bound. At gemma3-12b's global layer
+// (B=1, S=8192, H=16, K=8, D=240, causal: 5.37e8 pairs) the tensor work is
+// 4 * 240 flops a pair = 515.5 GFLOP, 0.52 ms (0.78 ms for the split's
+// 6 * D), and exp2 0.14 ms: there the tensor cores alone bound it.
 //
 // Design (one CTA per (query tile, head, batch)):
-//  * warpgroup 0 is the producer: it gives up registers (setmaxnreg 24) and
-//    one thread issues TMA loads: the Q tile once, then K and V tiles of
-//    BK = 128 keys through a ring of STAGES buffers with full/empty
-//    mbarriers. Tensor maps are 4-D over (D, heads, S, B) with a box of
-//    (64, 1, rows, 1) and the 128-byte swizzle (one 64-column bf16 row is
-//    128 bytes; D = 128 takes two boxes). TMA zero-fills rows past the end.
+//  * warpgroup 0 is the producer (D = 240 has none, below): it gives up
+//    registers (setmaxnreg 24) and one thread issues TMA loads: the Q tile
+//    once, then K and V tiles of BK keys (128; 64 at D = 240) through a
+//    ring of STAGES buffers with full/empty mbarriers. Tensor maps are 4-D
+//    over (D, heads, S, B) with a box of (64, 1, rows, 1) and the 128-byte
+//    swizzle (one 64-column bf16 row is 128 bytes; D = 128 takes two boxes,
+//    D = 240 four, the fourth reading columns 192..255). TMA zero-fills
+//    rows past the end and columns past D, and counts a box's full bytes
+//    towards the barrier's transaction count, zero-filled ones included.
 //  * NC consumer warpgroups own 64 query rows each (BQ = 64 * NC) and take
 //    the registers the producer gave up (setmaxnreg). S = Q K^T is wgmma
-//    m64n128k16 over D/16 steps, both operands in shared memory (K-major),
-//    accumulated in f32 registers.
+//    m64nBKk16 over D/16 steps (15 at D = 240: columns 240..255 are zero),
+//    both operands in shared memory (K-major), accumulated in f32
+//    registers.
 //  * online softmax on the accumulator fragment: scale * log2(e) is folded
 //    into one FFMA a score before ex2.approx; a row's max reduces over the 4
 //    lanes that share it, its sum stays per lane until the epilogue. Masks
 //    are evaluated only on tiles that cross the causal diagonal or the end
 //    of Sk.
 //  * O += P V: P goes to bf16 in registers as the register A operand of
-//    wgmma m64n64k16 ("RS"); V is the B operand from shared memory,
-//    MN-major (its D is contiguous), so the transposed-B bit is set. P is
-//    split into hi = bf16(p) and lo = bf16(p - hi) and both are multiplied
-//    by V, so P V keeps p to 2^-18 as the reference kernel's f32 P does; one
-//    bf16 P (2^-9) moves a bf16 model's logits measurably (chip_smoke.py's
-//    full-width check). O stays in f32 registers, is rescaled by
-//    exp2(m_prev - m_new), and the epilogue divides by the row sum and
-//    stores f32 through out's strides.
+//    wgmma m64n64k16 (m64n240k16 at D = 240; "RS"); V is the B operand from
+//    shared memory, MN-major (its D is contiguous), so the transposed-B bit
+//    is set. P is split into hi = bf16(p) and lo = bf16(p - hi) and both are
+//    multiplied by V, so P V keeps p to 2^-18 as the reference kernel's f32
+//    P does; one bf16 P (2^-9) moves a bf16 model's logits measurably
+//    (chip_smoke.py's full-width check). O stays in f32 registers, is
+//    rescaled by exp2(m_prev - m_new), and the epilogue divides by the row
+//    sum and stores f32 through out's strides.
 //  * schedule: each consumer warpgroup runs QK^T, wait, softmax, PV, wait;
 //    the warpgroups run unsynced, so one's softmax runs while another's
 //    wgmma does. On an H100 at the prefill's shape this beat FA3's
@@ -66,14 +73,29 @@
 //    consumers' 160 registers (PERF.md, Findings). D = 64 runs three
 //    consumers (BQ = 192, 512 threads, 128 x 24 + 384 x 160 registers),
 //    D = 128 two (BQ = 128, 384 threads, 128 x 24 + 256 x 240), where three
-//    spill.
+//    spill. D = 240 runs two with BK = 64 and one m64n240k16 P V wgmma a
+//    k-step (V's four boxes as four swizzle atoms, LBO apart, the last read
+//    to column 239): O takes 120 registers, S 32 and P hi + lo 32 (at
+//    BK = 128, S and P would need 64 more), and nothing past D is stored.
+//    Beside a producer, ptxas kept the consumers' code within the 168
+//    registers a thread that __launch_bounds__ allows 384 threads (three
+//    warps on one SM sub-partition; so it does for one producer warp beside
+//    8 consumer warps), whatever setmaxnreg grants, and spilled and
+//    serialized the wgmmas (tools/flash_sm90_variants.py builds that
+//    design). So D = 240 has no producer: 256 threads at up to 255
+//    registers; thread 0 loads Q and the first STAGES tiles, and the last
+//    of the 8 consumer warps to release a stage (a shared-memory count)
+//    loads the stage's next tile into it.
 //  * causal work skip: the KV loop ends at the tile's causal limit; query
 //    tiles are issued longest-first (grid.x = heads, grid.y = query tiles
 //    in reverse), so the tiles of unequal length run in LPT order.
 // One CTA fills an SM's registers, so shared memory holds a deeper ring (4
-// stages at D = 64, 2 at D = 128). The launch allocates nothing; tensor
-// maps are encoded on the host at each launch with cuTensorMapEncodeTiled,
-// looked up with cudaGetDriverEntryPointByVersion (no -lcuda).
+// stages at D = 64, 2 at D = 128 and 240: at D = 240, Q's four boxes take
+// 64 KB and a stage of K and V 64 KB, 193 KB of the 227 KB a block may use;
+// three stages, or BK = 128, do not fit). The launch allocates nothing;
+// tensor maps are encoded on the host at each launch with
+// cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPointByVersion
+// (no -lcuda).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,25 +104,55 @@
 
 namespace {
 
-constexpr int BK = 128;               // keys per KV tile
-constexpr int BOX_BYTES = BK * 128;   // one K or V box: 128 rows x 64 bf16
 constexpr float MASKED = -2.0e38f;    // the reference's masked-score fill
 constexpr int ERR_TENSOR_MAP = 10000; // + CUresult of cuTensorMapEncodeTiled
+constexpr int SMEM_MAX = 232448;      // dynamic shared memory a block may use
 
-// NC consumer warpgroups of 64 query rows each, plus the producer
+// Per head dim: NC consumer warpgroups of 64 query rows each, the producer's
+// warps (4: warpgroup 0, which gives registers to the consumers through
+// setmaxnreg; 0: none, the consumers reload the ring themselves), the
+// registers each consumer thread has, BK keys per KV tile, STAGES ring
+// buffers and PV_N columns of O per P V wgmma (tests/test_torch_flash_sm90.py
+// reads these lines)
+template <int D> struct Shape;
+template <> struct Shape<64> { static constexpr int NC = 3,
+  PRODUCER_WARPS = 4, CONSUMER_REGS = 160, BK = 128, STAGES = 4, PV_N = 64; };
+template <> struct Shape<128> { static constexpr int NC = 2,
+  PRODUCER_WARPS = 4, CONSUMER_REGS = 240, BK = 128, STAGES = 2, PV_N = 64; };
+template <> struct Shape<240> { static constexpr int NC = 2,
+  PRODUCER_WARPS = 0, CONSUMER_REGS = 255, BK = 64, STAGES = 2, PV_N = 240; };
+
 template <int D>
-struct Cfg {
-  static constexpr int NC = D == 64 ? 3 : 2;
-  static constexpr int BQ = 64 * NC;                  // query rows per CTA
-  static constexpr int THREADS = 128 * (NC + 1);
-  static constexpr int CONSUMER_REGS = NC == 2 ? 240 : 160;
-  static constexpr int CHUNKS = D / 64;               // 64-column boxes
-  static constexpr int STAGES = D == 64 ? 4 : 2;
-  static constexpr int Q_BOX = BQ * 128;              // one Q box's bytes
+struct Cfg : Shape<D> {
+  using S = Shape<D>;
+  static constexpr int BQ = 64 * S::NC;                // query rows per CTA
+  static constexpr int THREADS = 128 * S::NC + 32 * S::PRODUCER_WARPS;
+  static constexpr bool PRODUCER = S::PRODUCER_WARPS > 0;
+  static constexpr int CHUNKS = (D + 63) / 64;         // 64-column boxes
+  static constexpr int O_CHUNKS = D / S::PV_N;         // P V wgmmas a k-step
+  static constexpr int Q_BOX = BQ * 128;               // one Q box's bytes
+  static constexpr int BOX_BYTES = S::BK * 128;        // BK rows x 64 bf16
   static constexpr int TILE_BYTES = CHUNKS * BOX_BYTES;  // K or V tile
   // Q | K[STAGES] | V[STAGES] | barriers; +1024 to align the base
   static constexpr int SMEM =
-      CHUNKS * Q_BOX + 2 * STAGES * TILE_BYTES + 1024 + 256;
+      CHUNKS * Q_BOX + 2 * S::STAGES * TILE_BYTES + 1024 + 256;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+  // with setmaxnreg the producer keeps 24 registers a thread; without, every
+  // thread has the kernel's count, which __launch_bounds__ caps
+  static_assert(PRODUCER ? 128 * S::NC * S::CONSUMER_REGS + 128 * 24 <= 65536
+                         : THREADS * S::CONSUMER_REGS <= 65536,
+                "registers");
+  static_assert(S::PRODUCER_WARPS == 4 || S::PRODUCER_WARPS == 0,
+                "producer");
+  static_assert(!PRODUCER ||
+                    (S::CONSUMER_REGS % 8 == 0 && S::CONSUMER_REGS <= 240),
+                "setmaxnreg");
+  static_assert(CHUNKS * 64 >= D && D % 16 == 0, "head dim");
+  // an O chunk starts at a box: 64 columns a chunk, or one chunk of all D
+  static_assert(O_CHUNKS * S::PV_N == D && S::PV_N % 16 == 0 &&
+                S::PV_N <= 256 && (S::PV_N == 64 || O_CHUNKS == 1),
+                "P V width");
+  static_assert(S::BK == 64 || S::BK == 128, "keys per tile");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -120,6 +172,16 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
                :: "r"(bar) : "memory");
+}
+
+// One consumer warp's release of a ring stage without a producer: a count
+// in shared memory; true for the last of `n` warps of this use, which then
+// reloads the stage (the fences order the warps' reads before the reload).
+__device__ __forceinline__ bool last_release(uint32_t* count, uint32_t n) {
+  __threadfence_block();
+  const uint32_t old = atomicAdd(count, 1u);
+  __threadfence_block();
+  return (old + 1) % n == 0;
 }
 
 // Wait until the phase with parity `parity` has completed. A wait that
@@ -182,9 +244,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[BK / 16][4]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < BK / 16; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
 }
@@ -220,6 +283,27 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[32] (+)= A (64 x 16, shared) . B (16 x 64, shared), both K-major
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[32] += A (64 x 16 bf16, registers) . B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_pv(float (&d)[32],
                                          const uint32_t (&a)[4],
@@ -242,6 +326,57 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[120] += A (64 x 16 bf16, registers) . B (16 x 240, shared, MN-major:
+// 4 swizzle atoms of 64 columns, LBO apart)
+__device__ __forceinline__ void wgmma_pv(float (&d)[120],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %125, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n240k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119"
+      "}, {%120, %121, %122, %123}, %124, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -261,17 +396,18 @@ struct Rows {
   int lane;
 };
 
-// Online softmax of one 64 x 128 score tile in place: s becomes p, the
-// running max m and per-lane sum l of each of the thread's two rows are
-// updated, and alpha returns the factor by which O must be rescaled.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+// Online softmax of one 64 x BK score tile (NS = BK / 2 registers a
+// thread) in place: s becomes p, the running max m and per-lane sum l of
+// each of the thread's two rows are updated, and alpha returns the factor
+// by which O must be rescaled.
+template <bool MASK, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              float c, int k0, Rows rw, int Sk,
                                              int causal, int shift) {
   if constexpr (MASK) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < NS; ++i) {
       const int col = k0 + 8 * (i >> 2) + 2 * (rw.lane & 3) + (i & 1);
       const int row = rw.lo + 8 * ((i >> 1) & 1);
       float x = s[i] * c;
@@ -283,7 +419,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   // two partial chains per row (registers i & 3 of each group of 4)
   float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[i & 3] = fmaxf(mx[i & 3], s[i]);
+  for (int i = 0; i < NS; ++i) mx[i & 3] = fmaxf(mx[i & 3], s[i]);
   mx[0] = fmaxf(mx[0], mx[1]);     // row lo
   mx[1] = fmaxf(mx[2], mx[3]);     // row hi
   float mc[2];          // the new max in the log2 domain, negated
@@ -299,7 +435,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
   float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
     const float p = MASK ? ex2(s[i] + mc[r]) : ex2(fmaf(s[i], c, mc[r]));
     s[i] = p;
@@ -317,9 +453,10 @@ struct Params {
 };
 
 // S = Q K^T for one warpgroup: 64 query rows at qa (Q boxes Q_BOX bytes
-// apart), 128 keys at kb
-template <int D, int Q_BOX>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
+// apart), BK keys at kb (K boxes BOX_BYTES apart); D / 16 k-steps of 32
+// bytes, four to a 128-byte swizzled row
+template <int D, int Q_BOX, int BOX_BYTES, int NS>
+__device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t qa,
                                          uint32_t kb) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -329,35 +466,42 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t qa,
   }
 }
 
-// P as wgmma's register A fragments: hi = bf16(p) and lo = bf16(p - hi),
-// so that hi + lo holds p to ~2^-16 and P V keeps the f32 P of the
-// reference kernel at twice the PV tensor work
+// P as wgmma's register A fragments, one per k-step of 16 keys: hi =
+// bf16(p) and lo = bf16(p - hi), so that hi + lo holds p to ~2^-16 and P V
+// keeps the f32 P of the reference kernel at twice the PV tensor work
+template <int BK>
 struct PFrag {
   uint32_t hi[BK / 16][4];
   uint32_t lo[BK / 16][4];
 };
 
-// O += P V for one warpgroup: V's 128 keys at vb, 64 columns a box
-template <int CH>
-__device__ __forceinline__ void issue_pv(float (&o)[CH][32], const PFrag& p,
-                                         uint32_t vb) {
+// O += P V for one warpgroup: V's BK keys at vb, 64 columns a box
+// (BOX_BYTES apart), 16 keys (2048 bytes) a k-step; one wgmma of NO * 2
+// columns (a box, or at D = 240 all four, the last read to column 239) per
+// O chunk, hi and lo
+template <int OC, int NO, int BK, int BOX_BYTES>
+__device__ __forceinline__ void issue_pv(float (&o)[OC][NO],
+                                         const PFrag<BK>& p, uint32_t vb) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < OC; ++c)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv =
-          make_desc(vb + c * BOX_BYTES + kk * 2048, 1024, 1024);
+      const uint64_t dv = make_desc(vb + c * BOX_BYTES + kk * 2048,
+                                    BOX_BYTES, 1024);
       wgmma_pv(o[c], p.hi[kk], dv);
       wgmma_pv(o[c], p.lo[kk], dv);
     }
 }
 
-// The softmax of tile j for the warpgroup whose first row is row0; masks
-// only where the tile crosses the causal diagonal or the end of Sk.
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2],
+// The softmax of tile j (BK = 2 NS keys) for the warpgroup whose first row
+// is row0; masks only where the tile crosses the causal diagonal or the end
+// of Sk.
+template <int NS>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              const Params& prm, int j,
                                              int row0, Rows rw, int shift) {
+  constexpr int BK = 2 * NS;
   const int k0 = j * BK;
   if (k0 + BK > prm.Sk || (prm.causal && k0 + BK - 1 > row0 + shift))
     softmax_tile<true>(s, m, l, alpha, prm.c, k0, rw, prm.Sk, prm.causal,
@@ -370,14 +514,15 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&m)[2],
 // O *= alpha (per row), then P = bf16(s) as wgmma's register A fragments:
 // the accumulator layout of S's columns 16kk..16kk+15 is the A layout of
 // the k-step kk, so the conversion moves no data between lanes.
-template <int CH>
-__device__ __forceinline__ void rescale_and_pack(float (&o)[CH][32], PFrag& p,
-                                                 const float (&s)[64],
+template <int OC, int NO, int BK>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[OC][NO],
+                                                 PFrag<BK>& p,
+                                                 const float (&s)[BK / 2],
                                                  const float (&alpha)[2]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < OC; ++c)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < NO; ++i) o[c][i] *= alpha[(i >> 1) & 1];
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -391,17 +536,18 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[CH][32], PFrag& p,
     }
 }
 
-template <int CH>
-__device__ __forceinline__ void fence_o(float (&o)[CH][32]) {
+template <int OC, int NO>
+__device__ __forceinline__ void fence_o(float (&o)[OC][NO]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c) fence_regs(o[c]);
+  for (int c = 0; c < OC; ++c) fence_regs(o[c]);
 }
 
 // wgmma.fence, with the registers a wgmma batch reads pinned before it, so
 // that no write to them is scheduled after the fence
-template <int CH>
-__device__ __forceinline__ void fence_operands(float (&s)[64],
-                                               float (&o)[CH][32], PFrag& p) {
+template <int OC, int NO, int BK>
+__device__ __forceinline__ void fence_operands(float (&s)[BK / 2],
+                                               float (&o)[OC][NO],
+                                               PFrag<BK>& p) {
   fence_regs(s);
   fence_o(o);
   fence_regs(p.hi);
@@ -421,16 +567,22 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
   constexpr int ST = C::STAGES;
   constexpr int CH = C::CHUNKS;
   constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int BOX_BYTES = C::BOX_BYTES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
   const uint32_t sK = sQ + CH * C::Q_BOX;                 // + stage * TILE
   const uint32_t sV = sK + ST * C::TILE_BYTES;
   const uint32_t bars = sV + ST * C::TILE_BYTES;
-  // barriers: q_full | k_full[ST] | k_empty[ST] | v_full[ST] | v_empty[ST]
+  // barriers: q_full | k_full[ST] | k_empty[ST] | v_full[ST] | v_empty[ST],
+  // then the release counts of K's and V's stages (without a producer)
   const uint32_t q_full = bars;
   const uint32_t k_full = bars + 8, k_empty = k_full + 8 * ST;
   const uint32_t v_full = k_empty + 8 * ST, v_empty = v_full + 8 * ST;
+  uint32_t* const k_count = reinterpret_cast<uint32_t*>(
+      smem_raw + (v_empty + 8 * ST - smem_u32(smem_raw)));
+  uint32_t* const v_count = k_count + ST;
 
   const int h = blockIdx.x, b = blockIdx.z;
   const int n_qt = (prm.Sq + BQ - 1) / BQ;
@@ -449,39 +601,62 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
       mbar_init(v_full + 8 * s, 1);
       mbar_init(k_empty + 8 * s, 4 * NC);  // one arrival per consumer warp
       mbar_init(v_empty + 8 * s, 4 * NC);
+      k_count[s] = v_count[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  // TMA loads of Q and of K's and V's tile j into stage j % ST
+  auto load_q = [&] {
+    mbar_expect_tx(q_full, CH * C::Q_BOX);
+    for (int c = 0; c < CH; ++c)
+      tma_load(sQ + c * C::Q_BOX, &tmq, q_full, 64 * c, h, q0, b);
+  };
+  auto load_k = [&](int j) {
+    const int s = j % ST;
+    mbar_expect_tx(k_full + 8 * s, C::TILE_BYTES);
+    for (int c = 0; c < CH; ++c)
+      tma_load(sK + s * C::TILE_BYTES + c * BOX_BYTES, &tmk, k_full + 8 * s,
+               64 * c, kh, j * BK, b);
+  };
+  auto load_v = [&](int j) {
+    const int s = j % ST;
+    mbar_expect_tx(v_full + 8 * s, C::TILE_BYTES);
+    for (int c = 0; c < CH; ++c)
+      tma_load(sV + s * C::TILE_BYTES + c * BOX_BYTES, &tmv, v_full + 8 * s,
+               64 * c, kh, j * BK, b);
+  };
+  constexpr bool PRODUCER = C::PRODUCER;
+  if (!PRODUCER && threadIdx.x == 0) {
+    load_q();
+    for (int j = 0; j < min(ST, n_kv); ++j) {
+      load_k(j);
+      load_v(j);
+    }
+  }
+
   const int wg = threadIdx.x / 128;
-  if (wg == 0) {
+  const int cw = PRODUCER ? wg - 1 : wg;      // consumer 0 .. NC-1
+  if (PRODUCER && wg == 0) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if constexpr (PRODUCER)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, CH * C::Q_BOX);
-      for (int c = 0; c < CH; ++c)
-        tma_load(sQ + c * C::Q_BOX, &tmq, q_full, 64 * c, h, q0, b);
+      load_q();
       for (int j = 0; j < n_kv; ++j) {
-        const int s = j % ST;
         const uint32_t ph = (j / ST) & 1;
-        mbar_wait(k_empty + 8 * s, ph ^ 1);
-        mbar_expect_tx(k_full + 8 * s, C::TILE_BYTES);
-        for (int c = 0; c < CH; ++c)
-          tma_load(sK + s * C::TILE_BYTES + c * BOX_BYTES, &tmk,
-                   k_full + 8 * s, 64 * c, kh, j * BK, b);
-        mbar_wait(v_empty + 8 * s, ph ^ 1);
-        mbar_expect_tx(v_full + 8 * s, C::TILE_BYTES);
-        for (int c = 0; c < CH; ++c)
-          tma_load(sV + s * C::TILE_BYTES + c * BOX_BYTES, &tmv,
-                   v_full + 8 * s, 64 * c, kh, j * BK, b);
+        mbar_wait(k_empty + 8 * (j % ST), ph ^ 1);
+        load_k(j);
+        mbar_wait(v_empty + 8 * (j % ST), ph ^ 1);
+        load_v(j);
       }
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-                 :: "n"(C::CONSUMER_REGS));
-    const int cw = wg - 1;                       // consumer 0 .. NC-1
+    if constexpr (PRODUCER)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                   :: "n"(C::CONSUMER_REGS));
     const int t = threadIdx.x - 128 * wg;
     const int warp = t / 32, lane = t % 32;
     const int row0 = q0 + 64 * cw;               // the warpgroup's first row
@@ -489,13 +664,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
     // the warpgroup's 64 rows of Q: 64 rows x 128 bytes into each box
     const uint32_t qa = sQ + 64 * 128 * cw;
 
-    float o[CH][32];
+    constexpr int OC = C::O_CHUNKS, NO = C::PV_N / 2;
+    float o[OC][NO];       // O's columns PV_N * c + 8 * (i >> 2) + ...
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
+    for (int c = 0; c < OC; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
-    float s[64];
-    PFrag p;
+      for (int i = 0; i < NO; ++i) o[c][i] = 0.f;
+    float s[BK / 2];
+    PFrag<BK> p;
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
 
     mbar_wait(q_full, 0);
@@ -504,20 +680,30 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
       const uint32_t ph = (j / ST) & 1;
       mbar_wait(k_full + 8 * sj, ph);
       fence_operands(s, o, p);
-      issue_qk<D, C::Q_BOX>(s, qa, sK + sj * C::TILE_BYTES);
+      issue_qk<D, C::Q_BOX, BOX_BYTES>(s, qa, sK + sj * C::TILE_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      if (lane == 0) mbar_arrive(k_empty + 8 * sj);
+      if (lane == 0) {                           // this warp is done with K
+        if constexpr (PRODUCER)
+          mbar_arrive(k_empty + 8 * sj);
+        else if (j + ST < n_kv && last_release(k_count + sj, 4 * NC))
+          load_k(j + ST);
+      }
       softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
       rescale_and_pack(o, p, s, alpha);
       mbar_wait(v_full + 8 * sj, ph);
       fence_operands(s, o, p);
-      issue_pv(o, p, sV + sj * C::TILE_BYTES);
+      issue_pv<OC, NO, BK, BOX_BYTES>(o, p, sV + sj * C::TILE_BYTES);
       wgmma_commit();
       wgmma_wait<0>();
       fence_o(o);
-      if (lane == 0) mbar_arrive(v_empty + 8 * sj);
+      if (lane == 0) {                           // ... and with V
+        if constexpr (PRODUCER)
+          mbar_arrive(v_empty + 8 * sj);
+        else if (j + ST < n_kv && last_release(v_count + sj, 4 * NC))
+          load_v(j + ST);
+      }
     }
 
     // epilogue: the row sums reduce over the 4 lanes of a row
@@ -535,11 +721,11 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
       if (row >= prm.Sq) continue;
       float* orow = ob + (long long)row * prm.oss;
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
+      for (int c = 0; c < OC; ++c)
 #pragma unroll
-        for (int g = 0; g < 8; ++g) {
+        for (int g = 0; g < NO / 4; ++g) {
           const int i = 4 * g + 2 * r;
-          *reinterpret_cast<float2*>(orow + 64 * c + 8 * g +
+          *reinterpret_cast<float2*>(orow + C::PV_N * c + 8 * g +
                                      2 * (lane & 3)) =
               make_float2(o[c][i] * inv[r], o[c][i + 1] * inv[r]);
         }
@@ -598,8 +784,8 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   int e = make_map(&tq, q, D, prm.H, prm.Sq, B, st, C::BQ);
-  if (e == 0) e = make_map(&tk, k, D, prm.KH, prm.Sk, B, st + 3, BK);
-  if (e == 0) e = make_map(&tv, v, D, prm.KH, prm.Sk, B, st + 6, BK);
+  if (e == 0) e = make_map(&tk, k, D, prm.KH, prm.Sk, B, st + 3, C::BK);
+  if (e == 0) e = make_map(&tv, v, D, prm.KH, prm.Sk, B, st + 6, C::BK);
   if (e != 0) return e;
   const void* fn = (const void*)flash_sm90_kernel<D>;
   cudaError_t ce = cudaFuncSetAttribute(
@@ -628,6 +814,8 @@ extern "C" int flash_attention_sm90_launch(
       return launch<64>(q, k, v, st, prm, B, s);
     case 128:
       return launch<128>(q, k, v, st, prm, B, s);
+    case 240:
+      return launch<240>(q, k, v, st, prm, B, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,11 +24,10 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
     * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``, bf16 tensor cores fed
       by TMA, P split into two bf16 parts) for bf16 q, k and v with head
-      dim 64 or 128;
+      dim 64, 128 or 240 (gemma3-12b's global layers);
     * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
       for float32 inputs, which keep the reference's 2e-6 bar, and for bf16
-      at head dims 16 and 32 (the reference's test shapes) and 240
-      (gemma3-12b's global layers).
+      at head dims 16 and 32 (the reference's test shapes).
     """
     if q.dtype == torch.bfloat16 and q.shape[-1] in kernel_sm90.HEAD_DIMS:
         return "wgmma"

@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from .kernel_sm90 import BLOCK_K
+
 NEG_INF = -2.0e38
 LOG2E = math.log2(math.e)
 
@@ -35,12 +37,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bf16p_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, scale: float | None = None,
-                          block_k: int = 128, round_p: bool = True,
+                          block_k: int | None = None, round_p: bool = True,
                           split_p: bool = False) -> torch.Tensor:
     """The wgmma kernel's arithmetic (``csrc/flash_attention_sm90.cu``) in
     plain PyTorch: an online softmax over ``block_k``-key tiles counted from
-    key 0, scores scaled into the log2 domain (``scale * log2(e)``) and
-    exponentiated with ``exp2``, the running max starting at the fill -2e38,
+    key 0 (by default the kernel's tile at this head dim,
+    ``kernel_sm90.BLOCK_K``; 128 where it has no instance), scores scaled
+    into the log2 domain (``scale * log2(e)``) and exponentiated with
+    ``exp2``, the running max starting at the fill -2e38,
     the row sum taken over the f32 weights, and the weights rounded to bf16
     before ``P V`` (``round_p``), all sums in f32. ``split_p`` rounds P to
     two bf16 parts instead, hi = bf16(p) and lo = bf16(p - hi), each
@@ -51,6 +55,7 @@ def attention_bf16p_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
+    block_k = block_k or BLOCK_K.get(D, 128)
     c = (scale if scale is not None else D ** -0.5) * LOG2E
     qf = q.to(torch.float32).reshape(B, Sq, K, G, D)
     kf, vf = k.to(torch.float32), v.to(torch.float32)

@@ -4,8 +4,9 @@ against their plain versions, the engine on the card against its CPU run
 against the sort-then-cut one, a governed pack and an open-load serving
 pack against their CPU runs, traced runs against their CPU runs (and the
 tracer's record adding no host sync), the step profiler on the card, the
-qwen2 serving path through the flash kernel against the plain path, the
-FMA flash kernel at gemma3's head dim 240, and every other architecture's
+qwen2 serving path through the flash kernel against the plain path,
+gemma3's head dim 240 on both flash kernels (and the wgmma kernel writing
+nothing past its output), and every other architecture's
 prefill and decode (and MoE's capacity drops) on the card against the
 CPU.
 This file imports no JAX, so it also runs on a GPU host without it:
@@ -23,6 +24,7 @@ from repro_torch.kernels.grouped_scatter import (segment_sums,
                                                  segment_sums_ref)
 from repro_torch.kernels.flash_attention import (
     flash_attention, attention_ref, attention_bf16p_model, route)
+from repro_torch.kernels.flash_attention import kernel_sm90
 from repro_torch.kernels.flash_attention.ref import bf16_errors
 
 PROTOS = ["mysql", "o1", "o2", "group", "bamboo", "brook2pl"]
@@ -299,11 +301,45 @@ def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_fma_head_dim_240_on_card(card, shape, dtype, tol, causal):
-    """gemma3's head dim takes the FMA kernel in both dtypes (the wgmma
-    kernel has no D = 240 instance): every one of the 240 columns is
-    written and matches the plain version."""
+    """gemma3's head dim: f32 takes the FMA kernel (the reference's 2e-6),
+    bf16 the wgmma kernel's D = 240 instance (64-key tiles, four 64-column
+    boxes, the last one's 16 zero-filled columns never stored), held to
+    ref.bf16_errors with the split's bound: every one of the 240 columns
+    is written and matches the plain version."""
     q, k, v = _flash_inputs(shape, dtype)
-    _check_flash(q, k, v, causal, tol, "fma")
+    _check_flash(q, k, v, causal, tol,
+                 "fma" if dtype == torch.float32 else "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,transposed", [
+    ((1, 200, 200, 16, 8, 240), True),     # strided (B, H, S, D) data
+    ((1, 130, 77, 4, 2, 240), False),      # Sq > Sk: rows without a key
+    ((1, 1000, 1000, 16, 8, 240), False),  # many 64-key tiles
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_head_dim_240_on_card(card, shape, transposed, causal):
+    q, k, v = _flash_inputs(shape, torch.bfloat16, transposed)
+    _check_flash(q, k, v, causal, None, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", kernel_sm90.HEAD_DIMS)
+def test_flash_wgmma_writes_only_its_output_on_card(card, D):
+    """The output is a view into a NaN-filled buffer with one more head and
+    one more row: the kernel fills the view (bf16 bar) and leaves the extra
+    head and row NaN, so no 64-column box (D = 240's fourth holds 48 real
+    columns) and no tile row past Sq is stored."""
+    B, Sq, Sk, H, K = 2, 200, 200, 4, 2
+    q, k, v = _flash_inputs((B, Sq, Sk, H, K, D), torch.bfloat16)
+    buf = torch.full((B, Sq + 1, H + 1, D), float("nan"), device="cuda")
+    out = buf[:, :Sq, :H]
+    kernel_sm90.launch(q, k, v, out, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(buf[:, :, H].isnan().all()) and bool(buf[:, Sq].isnan().all())
+    want = attention_ref(q, k, v)
+    e = bf16_errors(out, want, attention_bf16p_model(q, k, v), v)
+    assert e["ok"], e
 
 
 def _to(tree, dev):

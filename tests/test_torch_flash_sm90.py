@@ -1,14 +1,16 @@
 """The bf16 route of the port's flash attention, checked on the CPU.
 
 The wgmma kernel (``csrc/flash_attention_sm90.cu``) runs only on the card;
-here its plain model ``attention_bf16p_model`` (online softmax over 128-key
-tiles, exp2 with the folded scale, P rounded to bf16 before PV) is held to
-the JAX reference's Pallas kernel (interpret mode, as tests/test_kernels.py
-runs it) and oracle at the reference's bf16 bar, its tiling is shown exact
-in f32 with the rounding off, and the bar built on it
-(``ref.bf16_errors``) is shown to pass the model and fail a fault. Also the
-routing rule (dtype and head dim), the wrappers' stride rule per dtype and
-the ptxas report parser the smoke prints registers with.
+here its plain model ``attention_bf16p_model`` (online softmax over the
+kernel's key tiles: 128 keys, 64 at head dim 240; exp2 with the folded
+scale, P rounded to bf16 before PV) is held to the JAX reference's Pallas
+kernel (interpret mode, as tests/test_kernels.py runs it) and oracle at the
+reference's bf16 bar, its tiling is shown exact in f32 with the rounding
+off, and the bar built on it (``ref.bf16_errors``) is shown to pass the
+model and fail a fault. Also the routing rule (dtype and head dim), the
+wrappers' stride rule per dtype, the ptxas report parser the smoke prints
+registers with, and each kernel instance's shared memory, registers and
+column boxes read from the source.
 """
 import re
 
@@ -42,6 +44,13 @@ UNEQUAL = [
     ((1, 48, 80, 6, 3, 16), False),
     ((1, 1, 33, 14, 2, 64), True),       # one decode-like query
 ]
+# gemma3-12b's head dim 240, on the kernel's 64-key tiles (kept apart from
+# the lists above so that their cases keep their ids)
+SQUARE_240 = [
+    (1, 256, 256, 4, 2, 240),   # the Pallas kernel's blocks (interpret)
+    (1, 200, 200, 16, 8, 240),  # gemma3-12b's 16/8 heads, ragged tiles
+]
+UNEQUAL_240 = [((2, 77, 130, 4, 2, 240), True)]     # fewer queries than keys
 
 
 @pytest.fixture(autouse=True)
@@ -65,7 +74,7 @@ def _inputs(seed, B, Sq, Sk, H, K, D, dtype):
     return j, t
 
 
-@pytest.mark.parametrize("shape", SQUARE)
+@pytest.mark.parametrize("shape", SQUARE + SQUARE_240)
 def test_model_vs_reference_kernel_bf16(shape):
     """Sq == Sk, causal: the Pallas kernel's top-left mask equals the
     oracle's bottom-right one, so both references apply."""
@@ -81,7 +90,7 @@ def test_model_vs_reference_kernel_bf16(shape):
         rtol=BF16_TOL, atol=BF16_TOL)
 
 
-@pytest.mark.parametrize("shape,causal", UNEQUAL)
+@pytest.mark.parametrize("shape,causal", UNEQUAL + UNEQUAL_240)
 def test_model_unequal_lengths_vs_oracle_bf16(shape, causal):
     """Sq != Sk: the model computes the oracle's bottom-right mask, rows
     without a visible key included."""
@@ -92,16 +101,17 @@ def test_model_unequal_lengths_vs_oracle_bf16(shape, causal):
         rtol=BF16_TOL, atol=BF16_TOL)
 
 
-@pytest.mark.parametrize("block_k", [16, 128])
+@pytest.mark.parametrize("block_k", [16, 128, 64])
 @pytest.mark.parametrize("shape,causal",
                          [(s, True) for s in SQUARE] + UNEQUAL
-                         + [((1, 300, 300, 2, 1, 64), False)])
+                         + [((1, 300, 300, 2, 1, 64), False)]
+                         + [(s, True) for s in SQUARE_240] + UNEQUAL_240)
 def test_model_tiling_is_exact_in_f32(shape, causal, block_k):
     """f32 inputs with the bf16 rounding of P switched off: the online
     softmax over key tiles, exp2 with the folded scale and the -2e38 fill
     give the oracle's function to f32 rounding (the reference's 2e-6), at
-    the kernel's 128-key tiles and at 16-key ones, which cross many tile
-    edges at these sizes."""
+    the kernel's 128-key tiles (64 at head dim 240) and at 16-key ones,
+    which cross many tile edges at these sizes."""
     (jq, jk, jv), (q, k, v) = _inputs(sum(shape) + block_k, *shape,
                                       np.float32)
     got = attention_bf16p_model(q, k, v, causal, block_k=block_k,
@@ -115,7 +125,8 @@ def test_model_tiling_is_exact_in_f32(shape, causal, block_k):
 
 
 @pytest.mark.parametrize("shape", [(1, 333, 333, 14, 2, 64),
-                                   (2, 37, 100, 4, 2, 64)])
+                                   (2, 37, 100, 4, 2, 64),
+                                   (1, 200, 200, 16, 8, 240)])
 def test_bf16_bar_passes_the_model_and_fails_a_fault(shape):
     """The bar of the wgmma route: the model meets it against itself, a
     second draw of the same rounding (P rounded after a 1-ulp change of the
@@ -135,15 +146,15 @@ def test_bf16_bar_passes_the_model_and_fails_a_fault(shape):
     assert not e["ok"] and e["max_abs"] > 10 * e["model_max_abs"], e
 
 
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 240])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_by_dtype_and_head_dim(dtype, D):
-    """bf16 at head dims 64 and 128 takes the wgmma kernel; f32 at every
-    head dim, and bf16 at 16 and 32 (the reference's test shapes only),
-    take the f32 FMA kernel."""
+    """bf16 at head dims 64, 128 and 240 (gemma3-12b's global layers) takes
+    the wgmma kernel; f32 at every head dim, and bf16 at 16 and 32 (the
+    reference's test shapes only), take the f32 FMA kernel."""
     q = torch.empty((1, 8, 4, D), dtype=dtype, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=dtype, device="meta")
-    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+    want = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128, 240)
             else "fma")
     assert route(q, kv, kv) == want
 
@@ -197,10 +208,56 @@ def test_head_dims_match_the_source():
         [(d, d) for d in kernel_sm90.HEAD_DIMS]
 
 
+def _instance_shapes() -> dict:
+    """Each instance's ``Shape<D>`` line of the .cu file: D -> {NC,
+    PRODUCER_WARPS, CONSUMER_REGS, BK, STAGES, PV_N}."""
+    src = kernel_sm90.SOURCE.read_text()
+    found = re.findall(r"template <> struct Shape<(\d+)> \{\s*static "
+                       r"constexpr int ([^;]*);", src)
+    return {int(d): {k.strip(): int(v) for k, v in
+                     (f.split("=") for f in fields.split(","))}
+            for d, fields in found}
+
+
+@pytest.mark.parametrize("D", kernel_sm90.HEAD_DIMS)
+def test_instance_fits_an_sm(D):
+    """Per instance, from the source: shared memory within the 232,448 B a
+    block may use (Q boxes, two rings of K and V tiles, the alignment pad
+    and the barriers, as ``Cfg::SMEM`` adds them); registers within the
+    SM's 65,536 (with a producer warpgroup, which keeps 24 a thread through
+    setmaxnreg, 128·NC·CONSUMER_REGS + 128·24; without one, every thread
+    at the consumers' count); enough 64-column boxes to cover D; and the
+    key tile ``kernel_sm90.BLOCK_K`` (and so the plain model's default
+    tile) names."""
+    shapes = _instance_shapes()
+    assert sorted(shapes) == sorted(kernel_sm90.HEAD_DIMS)
+    sh = shapes[D]
+    nc, regs, bk, stages = (sh["NC"], sh["CONSUMER_REGS"], sh["BK"],
+                            sh["STAGES"])
+    chunks = -(-D // 64)
+    q_box, box = 64 * nc * 128, bk * 128
+    smem = chunks * q_box + 2 * stages * chunks * box + 1024 + 256
+    assert smem <= 232_448, (D, smem)
+    if sh["PRODUCER_WARPS"] == 4:
+        assert 128 * nc * regs + 128 * 24 <= 65_536, (D, nc, regs)
+        assert regs % 8 == 0 and regs <= 240          # setmaxnreg's range
+    else:
+        assert sh["PRODUCER_WARPS"] == 0
+        assert 128 * nc * regs <= 65_536 and regs <= 255, (D, nc, regs)
+    assert chunks * 64 >= D and D % 16 == 0
+    assert D % sh["PV_N"] == 0 and (sh["PV_N"] == 64 or sh["PV_N"] == D)
+    assert kernel_sm90.BLOCK_K[D] == bk
+    if D == 240:   # 64-key tiles, a two-stage ring, one n240 P V, no producer
+        assert (nc, bk, stages, sh["PV_N"], sh["PRODUCER_WARPS"], smem) == \
+            (2, 64, 2, 240, 0, 197_888)
+
+
 @pytest.mark.parametrize("shape,causal", [((1, 333, 333, 14, 2, 64), True),
                                           ((1, 100, 37, 14, 2, 64), True),
                                           ((1, 256, 256, 2, 2, 128), False),
-                                          ((2, 37, 100, 4, 2, 32), True)])
+                                          ((2, 37, 100, 4, 2, 32), True),
+                                          ((1, 200, 200, 16, 8, 240), True),
+                                          ((2, 77, 130, 4, 2, 240), False)])
 def test_split_p_model_within_its_bound(shape, causal):
     """P split into bf16 hi + lo (the kernel's default): the model stays
     within split_p_bound of the f32 oracle, ~2^9 times closer than one

@@ -227,7 +227,8 @@ def test_gqa_mrope_prefill_and_decode_match_reference(mrope):
 def test_gemma3_head_dim_240_takes_the_fma_kernel():
     """gemma3-12b's global layers (head dim 240) with ``use_kernel`` equal
     the reference's (its Pallas kernel in interpret mode); on the card the
-    wrapper sends them to the FMA kernel, which has a D = 240 instance."""
+    wrapper sends f32 inputs to the FMA kernel and bf16 ones to the wgmma
+    kernel, which both have a D = 240 instance."""
     cfg, cfg_ref = _cfgs("gemma3-12b", head_dim=240, n_heads=4, n_kv_heads=2,
                          d_model=64)
     w = _weights(ref_attention.gqa_spec(cfg_ref), 9, jitter=0.05)
@@ -241,8 +242,8 @@ def test_gemma3_head_dim_240_takes_the_fma_kernel():
     _close(b, a)
     q = torch.zeros((1, 40, 4, 240), dtype=torch.bfloat16)
     kv = torch.zeros((1, 40, 2, 240), dtype=torch.bfloat16)
-    assert route(q, kv, kv) == "fma" and route(q.float(), kv.float(),
-                                               kv.float()) == "fma"
+    assert route(q, kv, kv) == "wgmma" and route(q.float(), kv.float(),
+                                                 kv.float()) == "fma"
     check_shapes(q, kv, kv)
 
 

@@ -144,14 +144,16 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         with pytest.raises((RuntimeError, ValueError, TypeError)):
             flash_attention(*args)
     assert flash_attention.launches == before
-    # the head dims the kernels have (240: gemma3-12b's global layers, on
-    # the FMA kernel) pass the shape check; others raise before a launch
+    # the head dims the kernels have (240: gemma3-12b's global layers, bf16
+    # on the wgmma kernel) pass the shape check; others raise before a
+    # launch
     from repro_torch.kernels.flash_attention.ops import check_shapes, route
     for D in (16, 32, 64, 128, 240):
         qd = torch.zeros((1, 5, 4, D), device="meta", dtype=torch.bfloat16)
         kd = torch.zeros((1, 7, 2, D), device="meta", dtype=torch.bfloat16)
         check_shapes(qd, kd, kd)
-        assert route(qd, kd, kd) == ("wgmma" if D in (64, 128) else "fma")
+        assert route(qd, kd, kd) == ("wgmma" if D in (64, 128, 240)
+                                     else "fma")
     for D in (8, 48, 96, 256):
         qd = torch.zeros((1, 5, 4, D), device="meta")
         kd = torch.zeros((1, 7, 2, D), device="meta")
