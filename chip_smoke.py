@@ -7,9 +7,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   gpu               the card's name and power limit (nvidia-smi)
   build             nvcc build of every kernel (segment_sums.cu,
-                    flash_attention.cu and flash_attention_sm90.cu, one nvcc
-                    each, started together); ptxas's registers and spills
-                    of the wgmma flash kernel's instances (D = 64, 128, 240)
+                    flash_attention.cu, flash_attention_sm90.cu and
+                    flash_attention_tf32.cu, one nvcc each, started
+                    together); ptxas's registers and spills of every
+                    kernel instance (among them the wgmma bf16 flash kernel
+                    at D = 64, 128, 240 and the tf32x3 f32 one at D = 16,
+                    32, 64, 128)
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -49,8 +52,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     weights (2e-4 relative, logits and caches; the CPU runs
                     in CHECK_WORKERS processes started before the phase),
                     prefill + decode against the full forward at capacity
-                    factor 8 (2e-4), and one FMA flash launch per global
-                    layer and prefill; the phase's wall
+                    factor 8 (2e-4), and one flash launch per global layer
+                    and prefill, each on the route the table gives f32 at
+                    the architecture's head dim (tf32x3 at the smoke
+                    configs' 16 and 64); the phase's wall
   engine_invariants drain invariants per protocol (T=64, R=4096) and the
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000),
@@ -150,8 +155,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     tests' shapes and at the main path's shape, with times
   flash             the flash kernels against their plain versions at the
                     reference tests' shapes, qwen2's heads at S = 2048,
-                    Sq != Sk, head dim 128 and a transposed view: f32 (FMA
-                    kernel) at 2e-6; bf16 on the wgmma kernel within 2e-2,
+                    Sq != Sk, head dim 128 and a transposed view: f32 (the
+                    tf32x3 kernel, 3xTF32 on the tensor cores) at 2e-6;
+                    bf16 on the wgmma kernel within 2e-2,
                     within 1.25x (+1e-6) of the max abs and RMS error of
                     the plain model with one bf16 rounding of P
                     (attention_bf16p_model) against the f32 oracle, and
@@ -162,14 +168,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     |logit|; f32 prefill-then-decode against the full
                     forward within 2e-4); at the main path's shape the same
                     bf16 bar, then kernel and SDPA timed in turns (kernel,
-                    library, library, kernel), and the f32 route (FMA
-                    kernel) beside SDPA on the same f32 inputs, in turns,
-                    with its f32 bound. gemma3-12b at full width (d 3840,
+                    library, library, kernel). The f32 route at the same
+                    shape: the tf32x3 kernel against the plain version
+                    (1e-5), beside the FMA kernel (kernel.launch, the route
+                    before it) and SDPA on the same f32 inputs, in turns
+                    (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), with both bounds
+                    (3xTF32 on the tensor cores, f32 on the CUDA cores) and
+                    ptxas's registers and spills of its D = 64 instance (no
+                    spill allowed). gemma3-12b at full width (d 3840,
                     16/8 heads of 240, vocab 262,144; bf16 weights from
                     --seed) cut to one unit of its layout (5 local + 1
                     global, of 48 layers): one bf16 prefill of 4,096 tokens
                     on the kernel path (one wgmma launch, counted from 0),
-                    the plain path and the f32 kernel path, held to the bars
+                    the plain path and the f32 kernel path (the FMA kernel
+                    at D = 240), held to the bars
                     of qwen2's bf16 path check. gemma3-12b's global-layer
                     shape (B=1, S=8,192, H=16, K=8, D=240, bf16, causal) on
                     the wgmma kernel's D = 240 instance against the plain
@@ -206,13 +218,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo", "brook2pl")
-# device-memory bandwidth (bytes/s), non-tensor-core f32 peak and dense bf16
-# tensor-core peak (FLOP/s) by card, from NVIDIA's data sheets (dense: half
-# the sparse figure); the SXM part is the default
+# device-memory bandwidth (bytes/s), non-tensor-core f32 peak, dense bf16
+# and dense TF32 tensor-core peaks (FLOP/s) by card, from NVIDIA's data
+# sheets (dense: half the sparse figure); the SXM part is the default
 CARDS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12),
-    "H100": (3.35e12, 67e12, 989e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
+    "H100": (3.35e12, 67e12, 989e12, 494.7e12),
 }
 ARCH = "qwen2-0.5b"
 DECODE_STEPS = 32
@@ -245,7 +257,7 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def card_rates(name: str) -> tuple[float, float, float]:
+def card_rates(name: str) -> tuple[float, float, float, float]:
     for key, rates in CARDS.items():
         if key in name:
             return rates
@@ -280,17 +292,19 @@ def phase_gpu() -> str:
 
 def phase_build(kernel_mods) -> list[dict]:
     """One nvcc per kernel source, all started together. Returns ptxas's
-    usage of the last module's kernels (the wgmma flash kernel's
-    instances)."""
+    usage of every kernel (one line per source), read by the checks of the
+    tensor-core flash kernels' instances."""
     from repro_torch.kernels.nvcc_build import ptxas_usage, report_path
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         libs = list(pool.map(lambda m: m.build(verbose=True), kernel_mods))
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(lib.relative_to(ROOT)) for lib in libs])
-    usage = ptxas_usage(report_path(libs[-1]).read_text())
-    emit("build", check="ptxas", source="flash_attention_sm90.cu",
-         kernels=usage)
+    usage = []
+    for mod, lib in zip(kernel_mods, libs):
+        kernels = ptxas_usage(report_path(lib).read_text())
+        emit("build", check="ptxas", source=mod.SOURCE.name, kernels=kernels)
+        usage += kernels
     return usage
 
 
@@ -1378,7 +1392,7 @@ def phase_kernels(inputs, launches: int, rates) -> dict:
     lib_ids = torch.where(gidx >= 0, gidx, G).long()    # -1 -> spill row
     library_ms = cuda_ms(lambda: torch.zeros(
         (G + 1, D), device="cuda").index_add_(0, lib_ids, upd))
-    bw, f32_peak, _ = rates
+    bw, f32_peak = rates[:2]
     nbytes = valid * D * upd.element_size() + 4 * N + 4 * G * D
     t_bytes, t_ops = nbytes / bw * 1e3, valid * D / f32_peak * 1e3
     row = {"name": "segment_sums", "route": "cuda",
@@ -1595,14 +1609,17 @@ class _MoEStatsLog:
         self._mod.moe = self._moe
 
 
-def phase_models(seed: int, cpu_runs: dict) -> int:
+def phase_models(seed: int, cpu_runs: dict) -> dict:
     """deepseek-v2-lite-16b at full width in bf16 (prefill of one 4,096-
     token prompt, chunked against dense, 32 absorbed-MLA decode steps, a
     GroupServer of 12 requests), then the nine non-qwen2 architectures at
     their smoke configs on the card against their CPU runs (``cpu_runs``:
-    futures by architecture). Returns the flash launches expected of it."""
+    futures by architecture). Returns the flash launches expected of it by
+    route: each architecture's on the route the table gives f32 inputs at
+    its head dim."""
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, route
+    from repro_torch.kernels.flash_attention.ops import ROUTES
     from repro_torch.launch.serve import GroupServer, Request
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import count_params, init_params, lm_spec
@@ -1706,9 +1723,12 @@ def phase_models(seed: int, cpu_runs: dict) -> int:
     torch.cuda.empty_cache()
 
     # the nine other architectures at their smoke configs, f32
-    expected = 0
+    expected = dict.fromkeys(ROUTES, 0)
     for arch in SMOKE_ARCHS:
         a_cfg = get_config(arch, smoke=True)
+        q, kv = (torch.empty((1, 1, h, a_cfg.hd), device="meta")
+                 for h in (a_cfg.n_heads, a_cfg.n_kv_heads))
+        f32_route = route(q, kv, kv)
         got = _arch_run(arch, seed, "cuda")
         want = cpu_runs[arch].result()
         errs = []
@@ -1725,13 +1745,13 @@ def phase_models(seed: int, cpu_runs: dict) -> int:
              family=a_cfg.family, tensors=len(errs),
              max_rel_err_vs_cpu=max(errs), decode_vs_full_rel=consistency,
              tol=2e-4, flash_launches=got["launches"],
-             global_layers=n_glob)
+             flash_route=f32_route, global_layers=n_glob)
         assert max(errs) < 2e-4, (arch, "card vs CPU", max(errs))
         assert consistency < 2e-4, (arch, "decode vs full", consistency)
         # two prefills (default and capacity factor 8) through the kernel
         assert got["launches"] == 2 * n_glob, (arch, got["launches"])
         assert want["launches"] == 0, "the CPU runs the plain version"
-        expected += got["launches"]
+        expected[f32_route] += got["launches"]
     emit("models", check="wall", seconds=time.perf_counter() - t_phase)
     return expected
 
@@ -1841,7 +1861,7 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
     library_runs = [t for fn, t in turns if fn is library_run]
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
     earlier_ms = cuda_ms(fma_run, reps=2)
-    bw, f32_peak, bf16_peak = rates
+    bw, _, bf16_peak, _ = rates
     pairs = B * S * (S + 1) // 2
     flops = 4 * H * D * pairs
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
@@ -1875,6 +1895,101 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                      "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
     emit("flash", check="gemma3_shape", **row)
+    return row
+
+
+def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
+    """The f32 route at the main path's shape (qwen2-0.5b's heads, B=1,
+    S=32,768, causal; ``q``, ``k`` and ``v`` f32): the tf32x3 kernel
+    against the plain version (max abs error within SAME_INPUTS_TOL, and
+    its ratio to the reference's 2e-6 + 2e-6 |want|), then timed in turns
+    beside the FMA kernel (``kernel.launch`` on the same inputs, the route
+    before it) and SDPA in f32 (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), the
+    plain version once; the 3xTF32 bound (three TF32 passes at the dense
+    TF32 peak) and the CUDA-core f32 bound; ptxas's registers and spills of
+    the D = 64 instance (no spill allowed). ``launches`` is the models
+    phase's tf32x3 launches. Returns the ``kernels`` summary's row."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention, kernel, kernel_tf32, route)
+    from repro_torch.kernels.flash_attention.ref import F32_TOL
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    assert route(q, k, v) == "tf32x3"
+    before = flash_attention.launches_by_route["tf32x3"]
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches_by_route["tf32x3"] == before + 1
+    want = bf16_chunked(q, k, v, attention_ref)
+    err = float((got - want).abs().max())
+    bar = float(((got - want).abs() / (F32_TOL + F32_TOL * want.abs()))
+                .max())
+    out = torch.empty_like(got)
+    del got
+
+    def fma_run():
+        kernel.launch(q, k, v, out, True, D ** -0.5)
+        return out
+    fma_err = float((fma_run() - want).abs().max())
+    del want
+    emit("flash", check="f32_vs_plain_main_path_shape",
+         shape=[B, S, S, H, K, D], dtype="torch.float32",
+         kernel_route="tf32x3", max_abs_err=err, f32_bar_ratio=bar,
+         fma_max_abs_err=fma_err, tol=SAME_INPUTS_TOL)
+    assert err <= SAME_INPUTS_TOL, ("tf32x3 kernel vs plain at the main "
+                                    "path's shape", err)
+    library_run, library_call = sdpa_library_run(q, k, v, gqa=False)
+
+    def kernel_run():
+        return flash_attention(q, k, v)
+    turns = [(fn, cuda_ms(fn, reps=r)) for fn, r in
+             ((kernel_run, 5), (fma_run, 1), (library_run, 3),
+              (library_run, 3), (fma_run, 1), (kernel_run, 5))]
+    card = gpu_query("name", "clocks.sm", "clocks.max.sm", "power.draw",
+                     "power.limit")
+    kernel_runs, fma_runs, library_runs = (
+        [t for f, t in turns if f is fn]
+        for fn in (kernel_run, fma_run, library_run))
+    library_diff = float((library_run().transpose(1, 2)
+                          - kernel_run()).abs().max())
+    plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=1)
+    bw, f32_peak, _, tf32_peak = rates
+    flops = 4 * H * D * B * S * (S + 1) // 2
+    nbytes = (B * S * H * D + 2 * B * S * K * D) * 4 + B * S * H * D * 4
+    t_bytes, t_tf32 = nbytes / bw * 1e3, 3 * flops / tf32_peak * 1e3
+    kernel_ms = sum(kernel_runs) / 2
+    inst = kernel_tf32.instance_name(D)
+    regs = [u for u in ptxas if inst in u["kernel"]]
+    assert len(regs) == 1, ("ptxas report of the tf32x3 D = 64 instance",
+                            inst)
+    emit("flash", check="ptxas_tf32_d64", **regs[0])
+    assert regs[0]["spill_store_bytes"] == 0, ("tf32x3 D = 64 spills",
+                                               regs[0])
+    row = {"name": "flash_attention_tf32x3", "route": "cuda",
+           "kernel_route": "tf32x3",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention_tf32.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+           "launches": launches,
+           "launches_on": "the models phase's f32 prefills",
+           "max_abs_err": err, "f32_bar_ratio": bar, "ms": kernel_ms,
+           "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_tf32),
+           "bound_by": "bytes" if t_bytes >= t_tf32 else "operations",
+           "tf32x3_bound_ms": t_tf32,
+           "f32_cores_bound_ms": flops / f32_peak * 1e3,
+           "library_ms": sum(library_runs) / 2,
+           "library_ms_runs": library_runs,
+           "library_call": library_call + " on f32 inputs",
+           "library_vs_kernel_max_abs": library_diff,
+           "earlier_ms": sum(fma_runs) / 2, "earlier_ms_runs": fma_runs,
+           "earlier_max_abs_err": fma_err,
+           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                             "flash_attention.cu (f32 FMA)",
+           "tflops": flops / (kernel_ms * 1e-3) / 1e12,
+           "ptxas": regs[0], "card_after_timing": card,
+           "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
+                     "dtype": "float32", "flops": flops,
+                     "tf32_flops": 3 * flops, "bytes": nbytes}}
+    emit("flash", check="f32_route", **row)
     return row
 
 
@@ -1918,13 +2033,13 @@ def gemma3_path(seed: int) -> int:
     by_route = dict(flash_attention.launches_by_route)
     emit("gemma3_path", launches={"flash_attention": flash_attention.launches,
                                   "flash_attention_by_route": by_route})
-    assert by_route == {"wgmma": 1, "fma": 0}, (
+    assert by_route == {**dict.fromkeys(ROUTES, 0), "wgmma": 1}, (
         "a bf16 gemma3 prefill: one wgmma launch (its global layer)",
         by_route)
     lp, _ = prefill(params, cfg, tokens=toks, use_kernel=False)
     cfg32 = dataclasses.replace(cfg, act_dtype="float32")
     lf, _ = prefill(params, cfg32, tokens=toks, use_kernel=True)
-    assert flash_attention.launches_by_route["fma"] == 1
+    assert flash_attention.launches_by_route["fma"] == 1    # f32 at D = 240
     lk, lp, lf = lk.float(), lp.float(), lf.float()
     assert lk.shape == (B, 1, cfg.padded_vocab) and bool(
         torch.isfinite(lk).all()), "gemma3 prefill logits"
@@ -1949,7 +2064,12 @@ def gemma3_path(seed: int) -> int:
 
 
 def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
-                ptxas: list, rates) -> dict:
+                tf32_launches: int, ptxas: list, rates) -> tuple[dict, dict]:
+    """The flash kernels' checks and times; returns the bf16 (wgmma) row and
+    the f32 (tf32x3) row of the ``kernels`` summary. ``launches`` and
+    ``by_route`` are the model phase's (bf16 prefill), ``tf32_launches``
+    the models phase's tf32x3 launches (the smoke architectures' f32
+    prefills)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, attention_ref, attention_bf16p_model, route)
     from repro_torch.kernels.flash_attention import kernel_sm90
@@ -1981,6 +2101,7 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
             q = rand(g, (B, Sq, H, D), dt, tr)
             k, v = (rand(g, (B, Sk, K, D), dt, tr) for _ in range(2))
             path = route(q, k, v)
+            assert dt != torch.float32 or path == "tf32x3", (D, path)
             before = flash_attention.launches_by_route[path]
             got = flash_attention(q, k, v, causal=True)
             assert flash_attention.launches_by_route[path] == before + 1
@@ -1994,8 +2115,9 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
                 emit("flash", check="vs_plain", **row, **e)
                 assert e["ok"], ("wgmma kernel vs plain", row, e)
             else:
-                # f32: the reference's 2e-6; bf16 at head dims 16 and 32
-                # (the FMA kernel, f32 arithmetic on the same inputs): 1e-5
+                # f32 (tf32x3): the reference's 2e-6; bf16 at head dims 16
+                # and 32 (the FMA kernel, f32 arithmetic on the same
+                # inputs): 1e-5
                 bar = 2e-6 if dt == torch.float32 else SAME_INPUTS_TOL
                 torch.testing.assert_close(got, want, rtol=bar, atol=bar)
                 emit("flash", check="vs_plain", **row, tol=bar,
@@ -2074,24 +2196,7 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     kernel_ms = sum(kernel_runs) / 2
     library_ms = sum(library_runs) / 2
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
-    # the f32 route (FMA) and SDPA on the same f32 inputs, in turns
-    qf, kf, vf = q.float(), k.float(), v.float()
-    assert route(qf, kf, vf) == "fma"
-
-    def fma_run():
-        return flash_attention(qf, kf, vf)
-    f32_library_run, f32_library_call = sdpa_library_run(qf, kf, vf,
-                                                         gqa=False)
-    f32_turns = [(fn, cuda_ms(fn, reps=r)) for fn, r in
-                 ((fma_run, 1), (f32_library_run, 3), (f32_library_run, 3),
-                  (fma_run, 1))]
-    f32_runs = [t for fn, t in f32_turns if fn is fma_run]
-    f32_library_runs = [t for fn, t in f32_turns if fn is f32_library_run]
-    f32_library_diff = float((f32_library_run().transpose(1, 2)
-                              - fma_run()).abs().max())
-    earlier_ms = sum(f32_runs) / 2
-    del qf, kf, vf
-    bw, f32_peak, bf16_peak = rates
+    bw, _, bf16_peak, _ = rates
     pairs = B * S * (S + 1) // 2              # (query, key) pairs attended
     flops = 4 * H * D * pairs                  # QK^T and PV, 2 per FMA
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
@@ -2119,28 +2224,16 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
            "exp_bound_ms": exp_bound_ms, "sm_clock_max_mhz": clock,
            "sms": n_sm, "card_after_timing": card,
-           "earlier_ms": earlier_ms, "earlier_ms_runs": f32_runs,
-           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
-                             "flash_attention.cu (f32 inputs, FMA)",
-           "f32_cores_bound_ms": flops / f32_peak * 1e3,
-           "f32_library_ms": sum(f32_library_runs) / 2,
-           "f32_library_ms_runs": f32_library_runs,
-           "f32_library_call": f32_library_call + " on f32 inputs",
-           "f32_library_vs_kernel_max_abs": f32_library_diff,
            "ptxas": regs[0] if regs else None,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                      "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
                      "exp2": pairs * H}}
     emit("flash", check="main_path_shape", **row)
-    emit("flash", check="f32_route", kernel_ms=earlier_ms,
-         kernel_ms_runs=f32_runs, f32_cores_bound_ms=flops / f32_peak * 1e3,
-         library_ms=row["f32_library_ms"], library_ms_runs=f32_library_runs,
-         library_call=row["f32_library_call"],
-         library_vs_kernel_max_abs=f32_library_diff,
-         card=gpu_query("name", "power.limit"))
+    tf32_row = flash_f32_route(q.float(), k.float(), v.float(), ptxas, rates,
+                               tf32_launches)
     gemma3_launches = gemma3_path(seed)
     row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas, gemma3_launches)
-    return row
+    return row, tf32_row
 
 
 def main() -> int:
@@ -2173,7 +2266,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.grouped_scatter import kernel, segment_sums
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.flash_attention import kernel_sm90
+    from repro_torch.kernels.flash_attention import kernel_sm90, kernel_tf32
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import ROUTES
 
@@ -2196,7 +2289,7 @@ def main() -> int:
         phase_fig15(args.fig15_horizon)
         emit("done", wall_s=time.perf_counter() - t_start)
         return 0
-    ptxas = phase_build([kernel, flash_kernel, kernel_sm90])
+    ptxas = phase_build([kernel, flash_kernel, kernel_sm90, kernel_tf32])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
@@ -2224,7 +2317,7 @@ def main() -> int:
                                  "flash_attention_by_route": by_route})
     assert flash_launches == cfg.n_layers, \
         ("flash launches per prefill", flash_launches, cfg.n_layers)
-    assert by_route == {"wgmma": cfg.n_layers, "fma": 0}, \
+    assert by_route == {**dict.fromkeys(ROUTES, 0), "wgmma": cfg.n_layers}, \
         ("a bf16 prefill's flash launches all take the wgmma route", by_route)
     lap("model")
 
@@ -2240,11 +2333,13 @@ def main() -> int:
         "segment_sums": segment_sums.launches,
         "flash_attention": flash_attention.launches,
         "flash_attention_by_route": dict(flash_attention.launches_by_route)})
-    assert flash_attention.launches == models_launches > 0, \
+    assert flash_attention.launches == sum(models_launches.values()) > 0, \
         ("flash launches of the models phase", flash_attention.launches,
          models_launches)
-    assert flash_attention.launches_by_route["fma"] == models_launches, \
-        "the smoke architectures run in f32: every launch is the FMA kernel's"
+    assert flash_attention.launches_by_route == models_launches, \
+        ("the smoke architectures run in f32: each launch on the route the "
+         "table gives f32 at its head dim", flash_attention.launches_by_route,
+         models_launches)
     lap("models")
 
     # engine_invariants' two packs and engine_vs_cpu's CPU half run in
@@ -2303,11 +2398,12 @@ def main() -> int:
                                "flash_attention": flash_attention.launches})
     row = phase_kernels(inputs, launches, card_rates(name))
     lap("kernels")
-    flash_row = phase_flash(cfg, params, args.seed, flash_launches, by_route,
-                            ptxas, card_rates(name))
+    flash_row, tf32_row = phase_flash(cfg, params, args.seed, flash_launches,
+                                      by_route, models_launches["tf32x3"],
+                                      ptxas, card_rates(name))
     lap("flash")
     emit("done", wall_s=time.perf_counter() - t_start, phase_wall_s=walls)
-    print(json.dumps({"kernels": [row, flash_row]}), flush=True)
+    print(json.dumps({"kernels": [row, flash_row, tf32_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """(B, S, H, D)-layout entry point of the flash attention kernels.
 
-``flash_attention`` launches a CUDA kernel for CUDA tensors (both kernels
-read and write this layout through strides, so nothing is transposed) and
+``flash_attention`` launches a CUDA kernel for CUDA tensors (every kernel
+reads and writes this layout through strides; the tf32x3 route's prep
+kernel writes a transposed copy of V into scratch) and
 counts launches in ``flash_attention.launches`` and, by route, in
 ``flash_attention.launches_by_route``. :func:`route` chooses the kernel. For
 CPU tensors it runs the plain version (:func:`attention_ref`). Anything else
@@ -13,10 +14,10 @@ from __future__ import annotations
 import torch
 
 from ...device import resolve
-from . import kernel, kernel_sm90
+from . import kernel, kernel_sm90, kernel_tf32
 from .ref import attention_ref
 
-ROUTES = ("wgmma", "fma")
+ROUTES = ("wgmma", "tf32x3", "fma")
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -25,12 +26,18 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``, bf16 tensor cores fed
       by TMA, P split into two bf16 parts) for bf16 q, k and v with head
       dim 64, 128 or 240 (gemma3-12b's global layers);
+    * ``"tf32x3"`` (``csrc/flash_attention_tf32.cu``, float32 on the tensor
+      cores as three TF32 products, fed by TMA) for float32 inputs with
+      head dim 16, 32, 64 or 128, held to the reference's 2e-6;
     * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
-      for float32 inputs, which keep the reference's 2e-6 bar, and for bf16
-      at head dims 16 and 32 (the reference's test shapes).
+      for float32 at head dim 240, and for bf16 at head dims 16 and 32 (the
+      reference's test shapes).
     """
-    if q.dtype == torch.bfloat16 and q.shape[-1] in kernel_sm90.HEAD_DIMS:
+    D = q.shape[-1]
+    if q.dtype == torch.bfloat16 and D in kernel_sm90.HEAD_DIMS:
         return "wgmma"
+    if q.dtype == torch.float32 and D in kernel_tf32.HEAD_DIMS:
+        return "tf32x3"
     return "fma"
 
 
@@ -87,16 +94,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Sk, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     path = route(q, k, v)
-    if path == "wgmma" and (scale < 0 or -(-Sq // kernel_sm90.BLOCK_Q)
-                            > kernel_sm90.MAX_QUERY_TILES):
-        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0 "
-                         f"and at most {kernel_sm90.MAX_QUERY_TILES} query "
-                         f"tiles of {kernel_sm90.BLOCK_Q}, got scale={scale} "
-                         f"Sq={Sq}")
+    tiled = {"wgmma": kernel_sm90, "tf32x3": kernel_tf32}.get(path)
+    if tiled is not None and -(-Sq // tiled.BLOCK_Q) > tiled.MAX_QUERY_TILES:
+        raise ValueError(f"flash_attention: the {path} kernel takes at most "
+                         f"{tiled.MAX_QUERY_TILES} query tiles of "
+                         f"{tiled.BLOCK_Q}, got Sq={Sq}")
+    if path == "wgmma" and scale < 0:
+        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0, "
+                         f"got scale={scale}")
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    launch = kernel_sm90.launch if path == "wgmma" else kernel.launch
+    launch = (tiled or kernel).launch
     launch(_aligned(q), _aligned(k), _aligned(v), out, causal, scale)
     flash_attention.launches += 1
     flash_attention.launches_by_route[path] += 1

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the flash attention kernels (GQA-aware):
-``attention_ref``, the function both kernels compute, and
-``attention_bf16p_model``, a model of the wgmma kernel's arithmetic that
-the tests and ``chip_smoke.py`` use to size its error (``bf16_errors``)."""
+``attention_ref``, the function every kernel computes;
+``attention_bf16p_model``, a model of the bf16 wgmma kernel's arithmetic
+that the tests and ``chip_smoke.py`` use to size its error
+(``bf16_errors``); and ``attention_3xtf32_model`` with ``tf32x3_layout``,
+the f32 tensor-core kernel's arithmetic and its prep kernel's layout."""
 from __future__ import annotations
 
 import math
@@ -9,6 +11,7 @@ import math
 import torch
 
 from .kernel_sm90 import BLOCK_K
+from .kernel_tf32 import BLOCK_K as TF32_BLOCK_K
 
 NEG_INF = -2.0e38
 LOG2E = math.log2(math.e)
@@ -133,3 +136,102 @@ def split_p_bound(v: torch.Tensor) -> float:
     output, a p-weighted mean of values, moves by at most 2^-18 max |v|;
     plus the f32 bar for rounding and the order of sums."""
     return 2.0 ** -18 * float(v.float().abs().max()) + F32_TOL
+
+
+# Storage position p of each group of 8 keys in the tf32x3 kernel's V^T
+# holds key KEY_ORDER[p]: the wgmma A fragment of a k-step holds columns t
+# and t + 4 of P where the S accumulator holds 2t and 2t + 1
+KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+_TF32_LOW = 0x1FFF              # the 13 low mantissa bits TF32 drops
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: half a TF32 ulp added to the
+    magnitude's bits, then the low 13 bits cleared."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~_TF32_LOW).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as a TF32 tensor-core operand reads it: the low 13
+    mantissa bits dropped."""
+    return (x.float().contiguous().view(torch.int32)
+            & ~_TF32_LOW).view(torch.float32)
+
+
+def tf32x3_layout(k: torch.Tensor, v: torch.Tensor,
+                  block_k: int | None = None) -> tuple[torch.Tensor, ...]:
+    """The tf32x3 kernel's prep output in plain PyTorch, for k and v
+    (B, Sk, K, D): K_hi, K_lo (B*K, Skp, DP) and V^T_hi, V^T_lo
+    (B*K, D, Skp), hi = :func:`tf32_rna`, lo = x - hi (exact), Skp = Sk
+    padded to the key tile (``kernel_tf32.BLOCK_K``), DP = max(D, 32), zero
+    past Sk and D, V^T's keys in :data:`KEY_ORDER` within each group of 8."""
+    B, Sk, K, D = k.shape
+    bk = block_k or TF32_BLOCK_K[D]
+    skp = -(-Sk // bk) * bk
+    kp = torch.zeros((B, K, skp, max(D, 32)), device=k.device)
+    kp[:, :, :Sk, :D] = k.float().permute(0, 2, 1, 3)
+    vp = torch.zeros((B, K, skp, D), device=v.device)
+    vp[:, :, :Sk] = v.float().permute(0, 2, 1, 3)
+    pos = torch.arange(skp, device=v.device)
+    order = pos - pos % 8 + torch.tensor(KEY_ORDER, device=v.device)[pos % 8]
+    kp = kp.reshape(B * K, skp, -1)
+    vt = vp[:, :, order].transpose(-1, -2).reshape(B * K, D, skp)
+    k_hi, vt_hi = tf32_rna(kp), tf32_rna(vt)
+    return k_hi, kp - k_hi, vt_hi, vt - vt_hi
+
+
+def _split3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi = TF32(x) rounded to nearest, lo = x - hi as the tensor core reads
+    it (truncated)."""
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def attention_3xtf32_model(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True, scale: float | None = None,
+                           block_k: int | None = None) -> torch.Tensor:
+    """The tf32x3 kernel's arithmetic (``csrc/flash_attention_tf32.cu``) in
+    plain PyTorch: an online softmax over ``block_k``-key tiles counted from
+    key 0 (by default the kernel's tile at this head dim,
+    ``kernel_tf32.BLOCK_K``; 64 where it has no instance); every product
+    a.b taken as a_hi b_lo + a_lo b_hi + a_hi b_hi (small terms first) with
+    hi = TF32 rounded to nearest and lo = a - hi truncated to TF32, for
+    Q K^T and for P V; scores scaled into the log2 domain (``scale *
+    log2(e)``) and exponentiated with ``exp2``, the running max starting at
+    the fill -2e38, the row sum over the f32 weights, all sums in f32. Same
+    arguments and result as :func:`attention_ref`. Used by tests and the
+    smoke to size the kernel's error, never on the model's path."""
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    block_k = block_k or TF32_BLOCK_K.get(D, 64)
+    c = (scale if scale is not None else D ** -0.5) * LOG2E
+    q_hi, q_lo = _split3(q.to(torch.float32).reshape(B, Sq, K, G, D))
+    k_hi, k_lo = _split3(k)
+    v_hi, v_lo = _split3(v)
+    last = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+    m = torch.full((B, K, G, Sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, K, G, Sq, D), device=q.device)
+    for k0 in range(0, Sk, block_k):
+        k1 = min(k0 + block_k, Sk)
+
+        def qk(a, b):
+            return torch.einsum("bqkgd,bskd->bkgqs", a, b[:, k0:k1])
+
+        def pv(a, b):
+            return torch.einsum("bkgqs,bskd->bkgqd", a, b[:, k0:k1])
+        x = (qk(q_hi, k_lo) + qk(q_lo, k_hi) + qk(q_hi, k_hi)) * c
+        if causal:
+            cols = torch.arange(k0, k1, device=q.device)[None, :]
+            x = torch.where(cols <= last, x, NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi, p_lo = _split3(p)
+        acc = acc * alpha + pv(p_hi, v_lo) + pv(p_lo, v_hi) + pv(p_hi, v_hi)
+        m = m_new
+    return (acc / l).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)

@@ -6,7 +6,9 @@ pack against their CPU runs, traced runs against their CPU runs (and the
 tracer's record adding no host sync), the step profiler on the card, the
 qwen2 serving path through the flash kernel against the plain path,
 gemma3's head dim 240 on both flash kernels (and the wgmma kernel writing
-nothing past its output), and every other architecture's
+nothing past its output), the f32 3xTF32 kernel (its prep layout bit for
+bit, its model, strided inputs, nothing written past its output), and
+every other architecture's
 prefill and decode (and MoE's capacity drops) on the card against the
 CPU.
 This file imports no JAX, so it also runs on a GPU host without it:
@@ -23,9 +25,11 @@ from repro_torch.core.lock.convert import state_to_numpy
 from repro_torch.kernels.grouped_scatter import (segment_sums,
                                                  segment_sums_ref)
 from repro_torch.kernels.flash_attention import (
-    flash_attention, attention_ref, attention_bf16p_model, route)
-from repro_torch.kernels.flash_attention import kernel_sm90
-from repro_torch.kernels.flash_attention.ref import bf16_errors
+    flash_attention, attention_ref, attention_bf16p_model,
+    attention_3xtf32_model, route)
+from repro_torch.kernels.flash_attention import kernel_sm90, kernel_tf32
+from repro_torch.kernels.flash_attention.ref import (F32_TOL, bf16_errors,
+                                                     tf32x3_layout)
 
 PROTOS = ["mysql", "o1", "o2", "group", "bamboo", "brook2pl"]
 
@@ -217,10 +221,11 @@ def _flash_inputs(shape, dtype, transposed=False):
 
 
 def _check_flash(q, k, v, causal, tol, want_route):
-    """One launch on ``want_route``; f32 held to ``tol``, bf16 on the wgmma
-    kernel to ref.bf16_errors (the model with one bf16 rounding of P, and
-    the bound of the kernel's split P), bf16 on the FMA kernel (head dims 16
-    and 32) to ``tol``."""
+    """One launch on ``want_route``; f32 (the tf32x3 kernel, or the FMA
+    kernel at head dim 240) held to ``tol``, bf16 on the wgmma kernel to
+    ref.bf16_errors (the model with one bf16 rounding of P, and the bound
+    of the kernel's split P), bf16 on the FMA kernel (head dims 16 and 32)
+    to ``tol``."""
     assert route(q, k, v) == want_route
     before = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
@@ -248,19 +253,22 @@ def _check_flash(q, k, v, causal, tol, want_route):
     (2, 37, 100, 4, 2, 32),      # Sq < Sk
     (1, 100, 37, 14, 2, 64),     # Sq > Sk: rows without a key
 ])
-# f32 on the FMA kernel: the reference's 2e-6. bf16 at head dims 64 and 128
-# runs the wgmma kernel, which takes P to bf16 in two parts: it is held to
-# 1.25x the error of the plain model with one bf16 rounding of P against the
-# f32 oracle (and to the reference's 2e-2), and to its split's bound,
-# 2^-18 max|v| + 2e-6; bf16 at head dims 16 and 32 runs the FMA kernel in
-# f32 from the same inputs, held to 1e-5
+# f32 on the tf32x3 kernel (3xTF32 on the tensor cores): the reference's
+# 2e-6. bf16 at head dims 64 and 128 runs the wgmma kernel, which takes P to
+# bf16 in two parts: it is held to 1.25x the error of the plain model with
+# one bf16 rounding of P against the f32 oracle (and to the reference's
+# 2e-2), and to its split's bound, 2^-18 max|v| + 2e-6; bf16 at head dims 16
+# and 32 runs the FMA kernel in f32 from the same inputs, held to 1e-5
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_on_card(card, shape, dtype, tol, causal):
     q, k, v = _flash_inputs(shape, dtype)
-    wgmma = dtype == torch.bfloat16 and shape[-1] in (64, 128)
-    _check_flash(q, k, v, causal, tol, "wgmma" if wgmma else "fma")
+    if dtype == torch.float32:
+        want = "tf32x3"
+    else:
+        want = "wgmma" if shape[-1] in (64, 128) else "fma"
+    _check_flash(q, k, v, causal, tol, want)
 
 
 @pytest.mark.cuda
@@ -300,8 +308,9 @@ def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_fma_head_dim_240_on_card(card, shape, dtype, tol, causal):
-    """gemma3's head dim: f32 takes the FMA kernel (the reference's 2e-6),
+def test_flash_head_dim_240_on_card(card, shape, dtype, tol, causal):
+    """gemma3's head dim: f32 takes the FMA kernel (the reference's 2e-6;
+    the tf32x3 kernel has no D = 240 instance),
     bf16 the wgmma kernel's D = 240 instance (64-key tiles, four 64-column
     boxes, the last one's 16 zero-filled columns never stored), held to
     ref.bf16_errors with the split's bound: every one of the 240 columns
@@ -340,6 +349,57 @@ def test_flash_wgmma_writes_only_its_output_on_card(card, D):
     want = attention_ref(q, k, v)
     e = bf16_errors(out, want, attention_bf16p_model(q, k, v), v)
     assert e["ok"], e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sk,K,D", [(2, 100, 2, 32), (1, 77, 1, 16),
+                                      (1, 333, 2, 64), (1, 200, 2, 128)])
+def test_flash_tf32_prep_layout_on_card(card, B, Sk, K, D):
+    """The prep kernel writes exactly ref.tf32x3_layout: cvt.rna's TF32 hi,
+    lo = x - hi, V^T's key order and zero padding, bit for bit."""
+    _, k, v = _flash_inputs((B, 1, Sk, K, K, D), torch.float32)
+    got = kernel_tf32.prep(k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(got, tf32x3_layout(k, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((1, 333, 333, 14, 2, 64), True),
+                                          ((2, 300, 2048, 14, 2, 64), False),
+                                          ((1, 200, 200, 2, 2, 128), True),
+                                          ((2, 96, 96, 6, 1, 16), False)])
+def test_flash_tf32_kernel_matches_its_model_on_card(card, shape, causal):
+    """The tf32x3 kernel against attention_3xtf32_model, the same 3xTF32
+    arithmetic in plain PyTorch (they differ in the tensor core's order and
+    rounding of sums and ex2.approx), and both against the oracle, within
+    the reference's 2e-6: a wrong tile, key order or split moves outputs
+    by far more."""
+    q, k, v = _flash_inputs(shape, torch.float32)
+    got = flash_attention(q, k, v, causal=causal)
+    model = attention_3xtf32_model(q, k, v, causal)
+    want = attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got, model, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(model, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", kernel_tf32.HEAD_DIMS)
+def test_flash_tf32_strided_and_writes_only_its_output_on_card(card, D):
+    """(B, H, S, D) views of q, k and v, and an output that is a view into
+    a NaN-filled buffer with one more head and one more row: the kernel
+    meets 2e-6 and leaves the extra head and row NaN."""
+    B, Sq, Sk, H, K = 2, 200, 150, 4, 2
+    q, k, v = _flash_inputs((B, Sq, Sk, H, K, D), torch.float32,
+                            transposed=True)
+    assert not q.is_contiguous()
+    buf = torch.full((B, Sq + 1, H + 1, D), float("nan"), device="cuda")
+    out = buf[:, :Sq, :H]
+    kernel_tf32.launch(q, k, v, out, True, D ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(buf[:, :, H].isnan().all()) and bool(buf[:, Sq].isnan().all())
+    torch.testing.assert_close(out, attention_ref(q, k, v), rtol=F32_TOL,
+                               atol=F32_TOL)
 
 
 def _to(tree, dev):

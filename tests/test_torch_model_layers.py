@@ -224,11 +224,12 @@ def test_gqa_mrope_prefill_and_decode_match_reference(mrope):
 
 # --------------------------------------------------------------- gemma3 D=240
 
-def test_gemma3_head_dim_240_takes_the_fma_kernel():
+def test_gemma3_head_dim_240_takes_the_fma_and_wgmma_kernels():
     """gemma3-12b's global layers (head dim 240) with ``use_kernel`` equal
     the reference's (its Pallas kernel in interpret mode); on the card the
-    wrapper sends f32 inputs to the FMA kernel and bf16 ones to the wgmma
-    kernel, which both have a D = 240 instance."""
+    wrapper sends f32 inputs to the FMA kernel (the 3xTF32 kernel has no
+    D = 240 instance) and bf16 ones to the wgmma kernel, which both have a
+    D = 240 instance."""
     cfg, cfg_ref = _cfgs("gemma3-12b", head_dim=240, n_heads=4, n_kv_heads=2,
                          d_model=64)
     w = _weights(ref_attention.gqa_spec(cfg_ref), 9, jitter=0.05)
