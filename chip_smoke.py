@@ -56,6 +56,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     and prefill, each on the route the table gives f32 at
                     the architecture's head dim (tf32x3 at the smoke
                     configs' 16 and 64); the phase's wall
+  train             the training half. qwen2-0.5b at full width (f32
+                    parameters and AdamW moments, bf16 activations, remat
+                    on; weights and data of seed 0) through train()'s own
+                    loop: 6 steps of B=8, S=1,024 from make_batch (Zipf 1.0;
+                    train_4k's 4,096 x 256 cut for the time limit), per step
+                    the loss, grad norm, ms, tokens/s and model-FLOP share
+                    of the dense bf16 rate, and the peak GiB; 4 steps on one
+                    fixed batch (--seed; peak_lr 1e-3, warmup 1) whose loss
+                    must fall; one smoke-size make_train_step (f32, B=2,
+                    S=32) of each token-input architecture on the card
+                    against the port's CPU run of the same weights and batch
+                    (TRAIN_LOSS_TOL and the bars beside it; the CPU runs in
+                    CHECK_WORKERS processes started before the phase); and a
+                    restart at smoke size under deterministic algorithms: 4
+                    steps straight (a checkpoint every 2) against 2 steps
+                    and a fresh train() resuming at step 2, the resumed
+                    losses equal bit for bit. No kernel lies on this path
+                    (the flash kernels have no backward pass), so its counts
+                    stay 0; the phase's wall
   engine_invariants drain invariants per protocol (T=64, R=4096) and the
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000),
@@ -206,8 +225,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1487,6 +1508,11 @@ SMOKE_ARCHS = ("deepseek-coder-33b", "gemma3-12b", "command-r-35b",
                "arctic-480b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
                "musicgen-medium", "qwen2-vl-2b", "mamba2-1.3b")
 SMOKE_ARCH_SHAPE = (2, 24)          # batch, prompt (test_decode_consistency)
+# the token-input architectures, whose smoke-size train steps the train
+# phase runs on the card and the CPU
+TRAIN_CHECK_ARCHS = ("qwen2-0.5b", "deepseek-coder-33b", "gemma3-12b",
+                     "command-r-35b", "arctic-480b", "deepseek-v2-lite-16b",
+                     "recurrentgemma-2b", "mamba2-1.3b")
 # the chunked prefill against the dense one: test_decode_consistency's
 # chunked-vs-dense bar, as last-token logits relative to max |logit|, with
 # f32 activations over the same bf16 weights and deterministic algorithms.
@@ -1754,6 +1780,207 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
         expected[f32_route] += got["launches"]
     emit("models", check="wall", seconds=time.perf_counter() - t_phase)
     return expected
+
+
+# the train phase: qwen2-0.5b at full width (f32 parameters and AdamW
+# moments, bf16 activations, remat on), batches from make_batch (Zipf 1.0)
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SHAPE = (8, 1_024)            # batch, sequence: 8,192 tokens a step
+TRAIN_STEPS = 6
+FIXED_STEPS = 4
+FIXED_OPT = dict(peak_lr=1e-4, warmup_steps=1, decay_steps=100)
+# the reference smoke test's rate (tests/test_models_smoke.py): at full
+# width, with no warmup, AdamW's first steps move every weight by ~1e-3 and
+# overshoot (12.50 -> 11.07 -> 12.85 -> 12.74 on an H100 80GB HBM3, 700 W),
+# so the fixed-batch check prints it only
+FIXED_OPT_SMOKE = dict(peak_lr=1e-3, warmup_steps=1, decay_steps=100)
+# the smoke-size card-vs-CPU steps (f32), their batch, and the restart run
+TRAIN_CHECK_SHAPE = (2, 32)
+RESTART_SHAPE = (4, 64)
+# card against CPU, the bars of tests/torch_train_parity.py: loss 1e-5
+# relative; grad norm 2e-4 relative; each gradient leaf within 2e-4 of its
+# max |g| (its bar); parameters after the step within
+# lr * eps / (2 bar * clip scale) + 1e-6 |p| where |g| > 2 bars, within
+# 2 lr (an AdamW step-1 sign flip) everywhere, flips on at most 1 %
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_BAR = 1e-5, 2e-4, 2e-4
+
+
+def _train_step_run(arch: str, seed: int, device: str) -> dict:
+    """One smoke-size make_train_step in f32 on ``device``, from weights of
+    ``seed`` made on the CPU and one make_batch batch (both devices get the
+    same numbers); its gradients from value_and_grad beside it. Returns
+    numpy arrays."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import init_params, lm_spec
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              act_dtype="float32")
+    params = _to(init_params(lm_spec(cfg), seed, device="cpu"), device)
+    batch, _ = make_batch(DataConfig(seed=seed), cfg, *TRAIN_CHECK_SHAPE,
+                          init_state(), device=device)
+    _, _, grads = value_and_grad(params, cfg, batch, device=device)
+    step = make_train_step(cfg, adamw.AdamWConfig(**FIXED_OPT_SMOKE),
+                           device=device)
+    new, _, m = step(params, adamw.init(params), batch)
+
+    def host(tree):
+        return [t.detach().to("cpu", torch.float32).numpy()
+                for t in _leaves(tree)]
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "lr": float(m["lr"]), "old": host(params), "grads": host(grads),
+            "new": host(new)}
+
+
+def _train_cpu_run(arch: str, seed: int) -> dict:
+    """:func:`_train_step_run` on the CPU, in a worker process."""
+    return _train_step_run(arch, seed, "cpu")
+
+
+def train_step_errors(got: dict, want: dict) -> dict:
+    """The card's step (``got``) against the CPU's (``want``): each error
+    as a fraction of its bar (see TRAIN_LOSS_TOL), and the share of
+    elements that moved by more than 1e-3 lr on a small gradient."""
+    lr = want["lr"]
+    scale = min(1.0, 1.0 / (want["grad_norm"] + 1e-9))
+    worst = dict.fromkeys(("grad", "param_firm", "param_flip"), 0.0)
+    flips = total = 0
+    for g_cpu, g_card, p0, p_cpu, p_card in zip(
+            want["grads"], got["grads"], want["old"], want["new"],
+            got["new"]):
+        bar = TRAIN_GRAD_BAR * float(np.abs(g_cpu).max()) + 1e-12
+        worst["grad"] = max(worst["grad"],
+                            float(np.abs(g_card - g_cpu).max()) / bar)
+        firm = np.abs(g_cpu) > 2 * bar
+        tol = 1e-6 * np.abs(p0) + 1e-7
+        diff = np.abs(p_card - p_cpu)
+        if firm.any():
+            firm_tol = tol + lr * 1e-8 / (2 * bar * scale)
+            worst["param_firm"] = max(worst["param_firm"], float(
+                (diff[firm] / firm_tol[firm]).max()))
+        worst["param_flip"] = max(worst["param_flip"], float(
+            (diff / (2 * lr * 1.001 + tol)).max()))
+        flips += int(((diff > lr * 1e-3 + tol) & ~firm).sum())
+        total += diff.size
+    return {"loss_rel": abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            / TRAIN_LOSS_TOL,
+            "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+            / want["grad_norm"] / TRAIN_GNORM_TOL,
+            **worst, "flip_share": flips / total}
+
+
+def model_flops_per_token(cfg, seq: int) -> float:
+    """Training FLOPs a token (forward and backward, no recompute): 6 per
+    parameter of every matmul (the head included, the embedding gather
+    not) and 12 L H D S for attention's two products over the full S x S
+    scores, which the plain path computes."""
+    from repro_torch.models import lm_spec, tree_leaves
+    spec = lm_spec(cfg)
+    n = sum(math.prod(s.shape) for s in tree_leaves(spec["blocks"])
+            if len(s.shape) == 2) + math.prod(spec["head"]["w"].shape)
+    return 6.0 * n + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * seq
+
+
+def phase_train(seed: int, cpu_runs: dict, rates) -> None:
+    """The training half: full-width qwen2-0.5b through train()'s own loop,
+    a fixed batch whose loss must fall, smoke-size steps on the card
+    against the CPU (``cpu_runs``: futures by architecture), and a restart
+    that must repeat the uninterrupted run's losses bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import count_params, init_params, lm_spec
+    from repro_torch.optim import adamw
+    from repro_torch.configs import ARCHS
+    assert set(cpu_runs) == {a for a in ARCHS
+                             if get_config(a).embed_inputs}, sorted(cpu_runs)
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_SHAPE
+    emit("train", check="cut", arch=TRAIN_ARCH, batch=B, seq_len=S,
+         steps=TRAIN_STEPS, remat=cfg.remat, act_dtype=cfg.act_dtype,
+         note="train_4k's 4,096 x 256 cut to 1,024 x 8 for the time limit; "
+              "f32 parameters and moments; no checkpoint at full width")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    losses = train(TRAIN_ARCH, False, TRAIN_STEPS, B, S, None,
+                   log_every=TRAIN_STEPS, device="cuda",
+                   on_step=records.append)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    flops = model_flops_per_token(cfg, S) * B * S
+    for r in records:
+        emit("train", check="step", step=r["step"], loss=r["loss"],
+             grad_norm=r["grad_norm"], lr=r["lr"], ms=1e3 * r["seconds"],
+             tokens_per_s=B * S / r["seconds"],
+             model_flop_share=flops / r["seconds"] / rates[2])
+    assert len(losses) == TRAIN_STEPS and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+        for r in records), records
+    steady = [r["seconds"] for r in records[1:]]
+    step_s = sum(steady) / len(steady)
+    emit("train", check="full_width", arch=TRAIN_ARCH,
+         params=count_params(lm_spec(cfg)), batch=B, seq_len=S,
+         first_step_ms=1e3 * records[0]["seconds"], step_ms=1e3 * step_s,
+         step_ms_each=[1e3 * x for x in steady],
+         tokens_per_s=B * S / step_s, model_tflop_per_step=flops / 1e12,
+         model_flop_share=flops / step_s / rates[2],
+         peak_memory_gib=peak_gb,
+         note="steps 2-6 (the first, a cold start, is reported apart); "
+              "share of the dense bf16 rate")
+
+    # one fixed batch at full width, from the same weights at two peak
+    # rates: the loss must fall at FIXED_OPT's; at the reference smoke
+    # test's 1e-3 (FIXED_OPT_SMOKE) it is printed only
+    params0 = init_params(lm_spec(cfg), seed)
+    batch, _ = make_batch(DataConfig(seed=seed), cfg, B, S, init_state(),
+                          device="cuda")
+    for opt_kw, checked in ((FIXED_OPT_SMOKE, False), (FIXED_OPT, True)):
+        params, opt = params0, adamw.init(params0)
+        step = make_train_step(cfg, adamw.AdamWConfig(**opt_kw))
+        fixed = []
+        for _ in range(FIXED_STEPS):
+            params, opt, m = step(params, opt, batch)
+            fixed.append(float(m["loss"]))
+        emit("train", check="fixed_batch", losses=fixed, asserted=checked,
+             **opt_kw)
+        del params, opt
+        assert not checked or fixed[-1] < fixed[0], \
+            ("fixed-batch loss must fall from step 1 to the last", fixed)
+    del params0, batch
+    torch.cuda.empty_cache()
+
+    # smoke-size steps of every token-input architecture, card against CPU
+    for arch, fut in cpu_runs.items():
+        err = train_step_errors(_train_step_run(arch, seed, "cuda"),
+                                fut.result())
+        emit("train", check="card_vs_cpu", arch=arch, act_dtype="float32",
+             **err, note="errors as fractions of their bars")
+        assert max(v for k, v in err.items() if k != "flip_share") <= 1.0 \
+            and err["flip_share"] <= 0.01, (arch, err)
+
+    # restart at smoke size: the resumed steps repeat the uninterrupted
+    # run's losses bit for bit (deterministic algorithms: the embedding and
+    # gather backwards sum with atomics otherwise)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    kw = dict(arch=TRAIN_ARCH, smoke=True, batch=RESTART_SHAPE[0],
+              seq=RESTART_SHAPE[1], ckpt_every=2, log_every=100,
+              device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            full = train(steps=4, ckpt_dir=f"{d}/a", **kw)
+            first = train(steps=2, ckpt_dir=f"{d}/b", **kw)
+            rest = train(steps=4, ckpt_dir=f"{d}/b", **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit("train", check="restart", uninterrupted=full, first=first,
+         resumed=rest)
+    assert first == full[:2] and rest == full[2:], (full, first, rest)
+    emit("train", check="wall", seconds=time.perf_counter() - t_phase)
 
 
 def _rand(gen, shape, dtype):
@@ -2341,6 +2568,21 @@ def main() -> int:
          "table gives f32 at its head dim", flash_attention.launches_by_route,
          models_launches)
     lap("models")
+
+    # the training half, counted the same way (no kernel lies on it: the
+    # flash kernels have no backward pass); the smoke-size steps' CPU halves
+    # run in worker processes meanwhile
+    with worker_pool(CHECK_WORKERS) as pool:
+        cpu_runs = {a: pool.submit(_train_cpu_run, a, args.seed)
+                    for a in TRAIN_CHECK_ARCHS}
+        zero_counts()
+        phase_train(args.seed, cpu_runs, card_rates(name))
+        torch.cuda.synchronize()
+    emit("train_path", launches={"segment_sums": segment_sums.launches,
+                                 "flash_attention": flash_attention.launches})
+    assert segment_sums.launches == flash_attention.launches == 0, \
+        "the train path takes the plain attention path"
+    lap("train")
 
     # engine_invariants' two packs and engine_vs_cpu's CPU half run in
     # worker processes while this process runs engine_vs_cpu's card half

@@ -7,7 +7,9 @@ counts launches in ``flash_attention.launches`` and, by route, in
 ``flash_attention.launches_by_route``. :func:`route` chooses the kernel. For
 CPU tensors it runs the plain version (:func:`attention_ref`). Anything else
 raises before a launch: a build or launch failure is an error, never a
-fallback.
+fallback. The kernels compute the forward pass only, so a call that autograd
+would record (grad mode on and an input that requires grad) raises on every
+device: on the card the result would carry no gradient.
 """
 from __future__ import annotations
 
@@ -77,6 +79,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, D); k/v: (B, Sk, K, D). Returns (B, Sq, H, D) f32.
     Causal masking is aligned bottom-right (row i sees keys
     j <= i + Sk - Sq), as the reference's ``attention_ref``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the kernels have no backward "
+                           "pass; call it on inputs that do not require "
+                           "grad, or under torch.no_grad()")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return attention_ref(q, k, v, causal, scale)
     resolve(None)               # the kernel runs on the card: raise without

@@ -72,7 +72,12 @@ def segment_sums(seg_ids: torch.Tensor, updates: torch.Tensor,
                  num_groups: int) -> torch.Tensor:
     """Per-group sums: seg_ids (N,) i32, updates (N, D) f32 or f16 ->
     (num_groups, D) f32. Ids outside [0, num_groups) are dropped; ids may
-    come in any order."""
+    come in any order. The kernel has no backward pass: an ``updates`` that
+    requires grad raises under grad mode, on every device."""
+    if torch.is_grad_enabled() and updates.requires_grad:
+        raise RuntimeError("segment_sums: the kernel has no backward pass; "
+                           "call it on updates that do not require grad, "
+                           "or under torch.no_grad()")
     if seg_ids.device.type == "cpu" and updates.device.type == "cpu":
         return segment_sums_ref(seg_ids, updates, num_groups)
     if seg_ids.device.type != "cuda" or updates.device != seg_ids.device:

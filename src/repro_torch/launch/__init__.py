@@ -1,1 +1,1 @@
-"""Step functions and the serving driver of the port."""
+"""Step functions and the training and serving drivers of the port."""

@@ -1,10 +1,49 @@
-"""Step functions driven by serve.py (the reference's
-``repro.launch.steps`` without the train step; training is not ported)."""
+"""Step functions driven by train.py and serve.py (the reference's
+``repro.launch.steps``)."""
 from __future__ import annotations
 
 import torch
 
-from ..models import decode_step, prefill
+from .. import tree
+from ..models import decode_step, loss_fn, prefill
+from ..optim import adamw
+
+NO_BACKWARD = ("use_kernel=True: the flash attention kernels have no "
+               "backward pass (neither has the reference's Pallas kernel), "
+               "so a train step takes the plain attention path")
+
+
+def value_and_grad(params, cfg, batch, device=None):
+    """(loss, {"ce", "aux"}, grads): the loss of :func:`loss_fn` (plain
+    attention) and its gradient with respect to every parameter leaf (zeros
+    where a leaf does not reach the loss), shaped as ``params``."""
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    live = tree.unflatten(params, leaves)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, cfg, batch, device=device)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree.unflatten(params, grads)
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, use_kernel=False,
+                    device=None):
+    """``train_step(params, opt_state, batch) -> (new_params, new_opt_state,
+    {"loss", "ce", "aux", "grad_norm", "lr"})``: the loss's gradient by
+    autograd, then :func:`repro_torch.optim.adamw.apply`. ``use_kernel``
+    raises: the flash kernels have no backward pass."""
+    if use_kernel:
+        raise ValueError(NO_BACKWARD)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = value_and_grad(params, cfg, batch,
+                                              device=device)
+        new_params, new_opt, om = adamw.apply(opt_cfg, grads, opt_state,
+                                              params)
+        return new_params, new_opt, {"loss": loss, **metrics, **om}
+    return train_step
 
 
 def make_prefill_step(cfg, use_kernel=False, max_len=None, device=None):

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 from .common import spec
@@ -109,17 +110,27 @@ def _causal_mask(Sq, Sk, window: Optional[int] = None, offset: int = 0,
 def _sdpa_chunked(q, k, v, scale, window: Optional[int], chunk: int):
     """Query-block-chunked causal attention: the (Sq, Sk) score matrix
     exists one (chunk, Sk) slab at a time, a loop over the query blocks.
-    (The reference wraps the block in ``jax.checkpoint`` so that training
-    recomputes the slab in the backward pass; serving has no backward pass,
-    so there is nothing to recompute here.)"""
+    When autograd records, each block runs under a non-reentrant checkpoint,
+    so the backward pass recomputes its slab instead of keeping it (the
+    reference's ``jax.checkpoint`` block body)."""
     B, Sq, H, D = q.shape
     assert Sq % chunk == 0, (Sq, chunk)
+    recompute = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+    def block(qb, k, v, offset):
+        mask = _causal_mask(chunk, k.shape[1], window, offset=offset,
+                            device=qb.device)[None, None]
+        return _sdpa(qb, k, v, mask, scale)                # (B, c, H*Dv)
+
     outs = []
     for qi in range(Sq // chunk):
-        mask = _causal_mask(chunk, k.shape[1], window, offset=qi * chunk,
-                            device=q.device)[None, None]
-        outs.append(_sdpa(q[:, qi * chunk:(qi + 1) * chunk], k, v, mask,
-                          scale))                          # (B, c, H*Dv)
+        qb = q[:, qi * chunk:(qi + 1) * chunk]
+        if recompute:
+            outs.append(checkpoint(block, qb, k, v, qi * chunk,
+                                   use_reentrant=False))
+        else:
+            outs.append(block(qb, k, v, qi * chunk))
     return torch.cat(outs, dim=1)
 
 

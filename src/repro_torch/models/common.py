@@ -4,8 +4,8 @@ and parameter counts (the reference's ``repro.models.common``).
 A spec tree is nested dicts (and, for the layers of a group, lists) with
 ``ParamSpec`` leaves; :func:`init_params` returns the same tree with tensors.
 The logical axis names ("embed", "heads", "kv", "mlp", "vocab", ...) are
-kept for parity with the reference, which resolves them to mesh axes; the
-port has no sharding yet.
+resolved to mesh axes by :mod:`repro_torch.distributed.sharding`, which
+plans a sharding; nothing executes one yet.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from ..device import resolve
+from ..tree import leaves as tree_leaves    # noqa: F401 (re-exported)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,13 +76,6 @@ def init_params(specs, seed: int | torch.Generator = 0,
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(seed))
     return tree_map_specs(lambda s: _init_one(s, gen, dtype, dev), specs)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves of a nested dict/list tree, in :func:`tree_map_specs` order."""
-    out = []
-    tree_map_specs(out.append, tree)
-    return out
 
 
 def count_params(specs) -> int:

@@ -9,6 +9,10 @@ carried as they are); :func:`caches_from_numpy` does the same for a cache
 tree of ``KVCache``, ``MLACache``, ``RGLRUState`` and ``SSDState`` leaves
 and :func:`caches_to_numpy` goes back to the reference's stacked layout, so
 both packages can run from, and be compared on, the same weights and caches.
+:func:`opt_state_from_numpy` carries the reference's ``AdamWState`` (f32,
+bf16 or 8-bit ``{"q", "s"}`` moments) across, and :func:`params_to_numpy`
+stacks a port's parameter (or moment) tree back into the reference's
+layout.
 Only the objects' structure (a cache's class name and fields) is read, so
 nothing here imports the reference.
 """
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..optim.adamw import AdamWState
 from .attention import KVCache, MLACache
 from .rglru import RGLRUState
 from .ssd import SSDState
@@ -67,6 +72,44 @@ def params_from_numpy(tree, device=None, dtype=None):
             for u, ut in gt.items()}
         for g, gt in tree["blocks"].items()}
     return out
+
+
+def opt_state_from_numpy(state, device=None) -> AdamWState:
+    """The reference's ``AdamWState(step, m, v)`` with numpy leaves (moments
+    as f32, bf16, or ``{"q": int8, "s": f32}`` packs, stacked as the
+    parameters are) -> the port's, on ``device``, every leaf at its own
+    dtype."""
+    dev = resolve(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    return AdamWState(step=step, m=params_from_numpy(state.m, device=dev),
+                      v=params_from_numpy(state.v, device=dev))
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as numpy at its own dtype (bf16 widened to f32 exactly)."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def params_to_numpy(tree):
+    """The port's parameter tree (or a moment tree of the same shape) ->
+    the reference's stacked layout with numpy leaves: each layer group's
+    list of per-layer dicts becomes one dict of (L, ...) arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        layers = [params_to_numpy(x) for x in tree]
+        return _map_many(lambda *xs: np.stack(xs), layers)
+    return _host(tree)
+
+
+def _map_many(f, trees):
+    if isinstance(trees[0], dict):
+        return {k: _map_many(f, [t[k] for t in trees]) for k in trees[0]}
+    return f(*trees)
 
 
 def caches_from_numpy(tree, device=None):

@@ -1,6 +1,11 @@
-"""Language model: embed -> layer groups -> head, in modes ``train`` (full
-logits), ``prefill`` and ``decode`` (the reference's ``repro.models.lm``
-without the loss; training is not ported yet).
+"""Language model: embed -> layer groups -> head, in modes ``train``,
+``prefill`` and ``decode``, and the training loss (the reference's
+``repro.models.lm``).
+
+In ``train`` mode :func:`forward` returns the full logits, or the post-norm
+hidden states when ``cfg.loss_chunk`` is set: :func:`chunked_cross_entropy`
+then builds the logits one sequence chunk at a time, recomputing each chunk
+in the backward pass, so the (B, S, V) logits never exist.
 
 ``cfg.embed_inputs=False`` architectures (musicgen, qwen2-vl) take
 precomputed frame/patch embeddings (``embeds`` (B, S, d)) instead of token
@@ -16,6 +21,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from .layers import (embed_spec, embed, unembed_spec, unembed,
@@ -73,17 +79,83 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
         x, nc, aux = group_apply_layers(
             params["blocks"][gkey], x, cfg, unit, mode, caches=gcache,
             pos=pos, positions3=positions3, use_kernel=use_kernel,
-            max_len=max_len)
+            remat=cfg.remat, max_len=max_len)
         new_caches[gkey] = nc
         aux_total = aux_total + aux
 
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     if mode == "prefill":
         x = x[:, -1:]          # only the last position feeds decoding
+    if mode == "train" and cfg.loss_chunk:
+        # chunked-CE path: the loss builds the logits chunk by chunk
+        return LMOutput(logits=x, caches=None, aux_loss=aux_total)
     logits = unembed(params["head"], x)
     return LMOutput(logits=logits,
                     caches=new_caches if mode != "train" else None,
                     aux_loss=aux_total)
+
+
+def _ce_sums(logits, labels, vocab: int, zloss: float = 0.0):
+    """Masked-sum CE in f32: (sum of the per-position losses, the number of
+    positions counted). logits (..., V_padded); labels (...) integer, those
+    below 0 masked out; padded vocabulary columns are masked at -1e30."""
+    V = logits.shape[-1]
+    lg = logits.to(torch.float32)
+    if V > vocab:
+        pad = torch.arange(V, device=lg.device) < vocab
+        lg = torch.where(pad, lg, -1e30)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if zloss:
+        nll = nll + zloss * lse.square()
+    mask = (labels >= 0).to(torch.float32)
+    return (nll * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits, labels, vocab: int, zloss: float = 0.0):
+    tot, n = _ce_sums(logits, labels, vocab, zloss)
+    return tot / n.clamp(min=1.0)
+
+
+def chunked_cross_entropy(head_params, x, labels, cfg):
+    """Sequence-chunked CE over hidden states x (B, S, d): the logits exist
+    one (B, loss_chunk, V) chunk at a time, in the forward pass and, through
+    a non-reentrant checkpoint of each chunk, in the backward pass."""
+    B, S, _ = x.shape
+    c = cfg.loss_chunk
+    if S % c:
+        raise ValueError(f"sequence {S} is not a multiple of loss_chunk {c}")
+
+    def body(xc, lc):
+        return _ce_sums(unembed(head_params, xc), lc, cfg.vocab, cfg.zloss)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(S // c):
+        sl = slice(j * c, (j + 1) * c)
+        nll, cnt = checkpoint(body, x[:, sl], labels[:, sl],
+                              use_reentrant=False)
+        tot, n = tot + nll, n + cnt
+    return tot / n.clamp(min=1.0)
+
+
+def loss_fn(params, cfg, batch, use_kernel=False, device=None):
+    """batch: dict with 'tokens'/'embeds', 'labels', optional 'positions3'.
+
+    Returns (loss, {"ce", "aux"}): CE plus 0.01 times the MoE load-balance
+    loss."""
+    out = forward(params, cfg, tokens=batch.get("tokens"),
+                  embeds=batch.get("embeds"),
+                  positions3=batch.get("positions3"), mode="train",
+                  use_kernel=use_kernel, device=device)
+    labels = torch.as_tensor(batch["labels"], device=out.logits.device)
+    if cfg.loss_chunk:
+        ce = chunked_cross_entropy(params["head"], out.logits, labels, cfg)
+    else:
+        ce = cross_entropy(out.logits, labels, cfg.vocab, cfg.zloss)
+    loss = ce + 0.01 * out.aux_loss
+    return loss, {"ce": ce, "aux": out.aux_loss}
 
 
 def prefill(params, cfg, tokens=None, embeds=None, positions3=None,

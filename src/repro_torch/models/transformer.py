@@ -8,11 +8,15 @@ The reference compiles each ``LayerGroup = (unit, repeats)`` as one
 group's parameters are a list with one dict per repeat, and
 :func:`group_apply_layers` is a Python loop over it; caches are lists of
 per-layer caches alongside (``KVCache``, ``MLACache``, ``RGLRUState``,
-``SSDState``).
+``SSDState``). With ``remat`` in ``train`` mode each repeat of the unit runs
+under a non-reentrant ``torch.utils.checkpoint``: only its input is kept,
+and the backward pass recomputes the rest (the reference's
+``jax.checkpoint(nothing_saveable)`` unit body).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from .attention import (gqa_spec, gqa_attend, gqa_cache_len, KVCache,
@@ -142,7 +146,8 @@ def block_apply(p, x, cfg, kind, mode, cache=None, pos=None,
 
 
 def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
-                       positions3=None, use_kernel=False, max_len=None):
+                       positions3=None, use_kernel=False, remat=True,
+                       max_len=None):
     """Run one layer group: ``p`` and ``caches`` are ``{u: [per repeat]}``.
 
     Returns (x, new_caches|None, aux_sum f32 scalar)."""
@@ -150,12 +155,26 @@ def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
     n_reps = len(p["u0"])
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {f"u{i}": [] for i in range(len(unit))}
-    for r in range(n_reps):
+
+    def unit_body(x, r):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ncs = []
         for i, kind in enumerate(unit):
             c = caches[f"u{i}"][r] if caches is not None else None
-            x, nc, aux = block_apply(p[f"u{i}"][r], x, cfg, kind, mode,
-                                     cache=c, pos=pos, positions3=positions3,
-                                     use_kernel=use_kernel, max_len=max_len)
+            x, nc, a = block_apply(p[f"u{i}"][r], x, cfg, kind, mode,
+                                   cache=c, pos=pos, positions3=positions3,
+                                   use_kernel=use_kernel, max_len=max_len)
+            ncs.append(nc)
+            aux = aux + a
+        return x, ncs, aux
+
+    recompute = remat and mode == "train" and torch.is_grad_enabled()
+    for r in range(n_reps):
+        if recompute:
+            x, ncs, aux = checkpoint(unit_body, x, r, use_reentrant=False)
+        else:
+            x, ncs, aux = unit_body(x, r)
+        for i, nc in enumerate(ncs):
             new_caches[f"u{i}"].append(nc)
-            aux_sum = aux_sum + aux
+        aux_sum = aux_sum + aux
     return x, (new_caches if has_cache else None), aux_sum

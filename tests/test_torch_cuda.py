@@ -10,7 +10,10 @@ nothing past its output), the f32 3xTF32 kernel (its prep layout bit for
 bit, its model, strided inputs, nothing written past its output), and
 every other architecture's
 prefill and decode (and MoE's capacity drops) on the card against the
-CPU.
+CPU, and the training half (the kernel wrappers refusing gradients,
+batches, train steps and the grouped embedding gradient against the CPU, a
+bit-exact restart, checkpoints restored onto the card, the quantized
+all-reduce).
 This file imports no JAX, so it also runs on a GPU host without it:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -587,3 +590,168 @@ def test_profile_step_on_card(card):
     assert prof.compiles == len(stages) + 1
     assert abs(sum(r.fraction for r in prof.stages) - 1.0) < 1e-9
     assert prof.us_per_iter > 0
+
+
+# ------------------------------------------------------- the training half
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_gradients_on_card(card):
+    """A CUDA input that requires grad raises before any launch: the kernels
+    return tensors without a grad_fn."""
+    q = torch.randn((1, 64, 4, 64), device="cuda", requires_grad=True)
+    kv = torch.randn((1, 64, 2, 64), device="cuda")
+    seg = torch.zeros((8,), dtype=torch.int32, device="cuda")
+    upd = torch.ones((8, 4), device="cuda", requires_grad=True)
+    before = (flash_attention.launches, segment_sums.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        segment_sums(seg, upd, 2)
+    assert (flash_attention.launches, segment_sums.launches) == before
+    with torch.no_grad():
+        out = flash_attention(q, kv, kv)
+    assert out.grad_fn is None and flash_attention.launches == before[0] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "musicgen-medium",
+                                  "qwen2-vl-2b"])
+def test_make_batch_equal_on_card_and_cpu(card, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    cfg = get_config(arch, smoke=True)
+    dc = DataConfig(seed=5, host_id=1)
+    got, _ = make_batch(dc, cfg, 4, 32, init_state())
+    want, _ = make_batch(dc, cfg, 4, 32, init_state(), device="cpu")
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "deepseek-v2-lite-16b",
+                                  "mamba2-1.3b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One f32 smoke-size step from the same weights and batch: the loss
+    within 1e-5 relative, every gradient leaf within 2e-4 of its max |g|
+    (tests/torch_train_parity.py's bars), AdamW's new parameters within
+    2 lr (a step-1 sign flip) and mostly far closer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import init_params, lm_spec
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves as _tree_leaves
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  act_dtype="float32")
+        opt_cfg = adamw.AdamWConfig(peak_lr=1e-3, warmup_steps=1)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = _tree_to(init_params(lm_spec(cfg), 0, device="cpu"),
+                              dev)
+            batch, _ = make_batch(DataConfig(), cfg, 2, 32, init_state(),
+                                  device=dev)
+            loss, _, grads = value_and_grad(params, cfg, batch, device=dev)
+            new, _, m = make_train_step(cfg, opt_cfg, device=dev)(
+                params, adamw.init(params), batch)
+            out[dev] = (float(loss), [g.cpu() for g in _tree_leaves(grads)],
+                        [p.cpu() for p in _tree_leaves(new)], float(m["lr"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (l0, g0, p0, lr), (l1, g1, p1, _) = out["cpu"], out["cuda"]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    moved = total = 0
+    for a, b, pa, pb in zip(g0, g1, p0, p1):
+        assert float((a - b).abs().max()) <= 2e-4 * float(a.abs().max()) \
+            + 1e-12
+        diff = (pa - pb).abs()
+        assert float(diff.max()) <= 2 * lr * 1.001 + 1e-6
+        moved += int((diff > 1e-3 * lr).sum())
+        total += diff.numel()
+    assert moved <= 0.01 * total, (moved, total)
+
+
+@pytest.mark.cuda
+def test_train_restart_on_card_is_bit_exact(card, tmp_path):
+    from repro_torch.launch.train import train
+    kw = dict(arch="qwen2-0.5b", smoke=True, batch=4, seq=64, ckpt_every=2,
+              device="cuda")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        full = train(steps=4, ckpt_dir=str(tmp_path / "a"), **kw)
+        first = train(steps=2, ckpt_dir=str(tmp_path / "b"), **kw)
+        rest = train(steps=4, ckpt_dir=str(tmp_path / "b"), **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert first == full[:2] and rest == full[2:], (full, first, rest)
+
+
+@pytest.mark.cuda
+def test_grouped_embed_on_card(card):
+    """The grouped gradient equals autograd's indexing backward and the
+    CPU's, on Zipf tokens."""
+    from repro_torch.optim import grouped_embed, serial_embed
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(512, 64)).astype(np.float32)
+    tokens = np.minimum(rng.zipf(1.2, (8, 256)) - 1, 511).astype(np.int64)
+    ct = rng.normal(size=(8, 256, 64)).astype(np.float32)
+    grads = {}
+    for name, fn, dev in (("grouped", grouped_embed, "cuda"),
+                          ("serial", serial_embed, "cuda"),
+                          ("cpu", grouped_embed, "cpu")):
+        t = torch.from_numpy(table).to(dev).requires_grad_(True)
+        out = fn(t, torch.from_numpy(tokens).to(dev))
+        (g,) = torch.autograd.grad(out, t, torch.from_numpy(ct).to(dev))
+        grads[name] = g.cpu()
+    torch.testing.assert_close(grads["grouped"], grads["serial"], rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(grads["grouped"], grads["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_checkpoint_restores_onto_card_bit_for_bit(card, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn((64, 8), generator=g).to(torch.bfloat16),
+            "m": torch.randn((64, 8), generator=g),
+            "q": torch.randint(-127, 128, (4, 3), generator=g,
+                               dtype=torch.int8)}
+    ck = Checkpointer(str(tmp_path))
+    ck.save(3, _tree_to(tree, "cuda"))
+    ck.wait()
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    for got in (ck.restore(3, _tree_to(like, "cuda")),
+                ck.restore(3, like, device="cuda")):
+        for k, v in tree.items():
+            assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+            assert torch.equal(got[k].cpu().view(torch.int16)
+                               if v.dtype == torch.bfloat16 else got[k].cpu(),
+                               v.view(torch.int16)
+                               if v.dtype == torch.bfloat16 else v)
+
+
+@pytest.mark.cuda
+def test_quantized_psum_single_rank_on_card(card):
+    from repro_torch.optim import quantized_psum
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(5000,)).astype(np.float32)
+    r = (0.01 * rng.normal(size=(5000,))).astype(np.float32)
+    want = quantized_psum(torch.from_numpy(x), residual=torch.from_numpy(r))
+    got = quantized_psum(torch.from_numpy(x).cuda(),
+                         residual=torch.from_numpy(r).cuda())
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

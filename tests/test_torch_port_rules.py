@@ -36,7 +36,7 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_default_device_needs_cuda(no_cuda):
+def test_default_device_needs_cuda(no_cuda, tmp_path):
     from repro_torch import device
     from repro_torch.core import group_apply, init_hotspot
     from repro_torch.core.lock import simulate, WorkloadSpec
@@ -114,6 +114,37 @@ def test_default_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         profile_step(cfg, n_iters=2, repeats=1)
     assert certify_run("mysql", wl, 4, horizon=100, device="cpu").ok
+    # the training half: data, the train step, the driver, restoring onto a
+    # named device; grouped_embed runs where its table lies
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw, grouped_embed
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch(DataConfig(), cfg, 2, 8, init_state())
+    batch, _ = make_batch(DataConfig(), cfg, 2, 8, init_state(),
+                          device="cpu")
+    assert batch["tokens"].device.type == "cpu"
+    params = init_params(lm_spec(cfg), 0, device="cpu")
+    opt = adamw.init(params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, adamw.AdamWConfig())(params, opt, batch)
+    new, _, m = make_train_step(cfg, adamw.AdamWConfig(), device="cpu")(
+        params, opt, batch)
+    assert new["ln_f"]["scale"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("qwen2-0.5b", True, 1, 2, 8, None)
+    ckpt = Checkpointer(str(tmp_path), async_save=False)
+    ckpt.save(1, {"w": torch.ones(3)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ckpt.restore(1, {"w": torch.zeros(3)}, device="cuda")
+    assert ckpt.restore(1, {"w": torch.zeros(3)})["w"].device.type == "cpu"
+    table = torch.randn((8, 2), requires_grad=True)
+    out = grouped_embed(table, torch.tensor([1, 1, 3]))
+    (g,) = torch.autograd.grad(out.sum(), table)
+    assert g.device.type == "cpu" and float(g[1, 0]) == 2.0
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
@@ -165,6 +196,35 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     torch.testing.assert_close(flash_attention(q240, kv240, kv240),
                                attention_ref(q240, kv240, kv240))
     assert flash_attention.launches == before
+
+
+def test_kernel_wrappers_refuse_gradients():
+    """The kernels compute forward passes only: an input that requires grad
+    under grad mode raises before the route is chosen, so the CPU (whose
+    plain version could differentiate) refuses what the card would. Under
+    no_grad, or on inputs that need no grad, the wrappers run."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     attention_ref)
+    from repro_torch.kernels.grouped_scatter import segment_sums
+    q = torch.randn((1, 5, 4, 16), requires_grad=True)
+    kv = torch.randn((1, 7, 2, 16))
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q.detach(), kv.requires_grad_(True), kv)
+    meta = torch.zeros((1, 5, 4, 16), device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(meta, meta, meta)
+    with torch.no_grad():
+        torch.testing.assert_close(flash_attention(q, kv, kv),
+                                   attention_ref(q, kv, kv))
+    seg = torch.zeros((4,), dtype=torch.int32)
+    upd = torch.ones((4, 3), requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        segment_sums(seg, upd, 2)
+    with torch.no_grad():
+        assert float(segment_sums(seg, upd, 2)[0, 0]) == 4.0
+    assert float(segment_sums(seg, upd.detach(), 2)[0, 0]) == 4.0
 
 
 def test_kernel_build_names_by_hash_and_needs_nvcc(tmp_path, monkeypatch):
