@@ -115,6 +115,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     runs go to SINGLE_LANE_WORKERS processes on the same
                     card while this process runs the packs, so the packs'
                     walls are taken beside them
+  shards            execution across devices on the one card: sweep_vs_single's
+                    grid compacted at width 8 through run_sweep with
+                    devices=["cuda:0", "cuda:0"] (two spawned worker
+                    processes, the lanes split by the reference's
+                    _shard_lanes rule) equal lane for lane to the unsharded
+                    run, both walls; a one-rank NCCL process group and its
+                    (1, 1) mesh: two full-width qwen2-0.5b FSDP+TP steps
+                    through train() (DTensor parameters and moments, B=8,
+                    S=1,024) against the train phase's first two losses
+                    (TRAIN_LOSS_TOL), and a tensor-parallel prefill at the
+                    model phase's shape (S = 32,768, serve-rule placements,
+                    the flash kernel on the rank's local heads) equal to the
+                    model phase's logits bit for bit; launch counts zeroed before and
+                    read after (24 flash launches, one a layer, per rank).
+                    NCCL refuses two ranks on one card, so the mesh has one
+                    rank (tools/multicard_smoke.py runs four)
   governed          run_governed at full width: the engine phase's table and
                     pool (hotspot update, txn_len 8, R=1,000,000, T=1024,
                     attribution on), stationary drift, 4 segments over the
@@ -239,14 +255,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo", "brook2pl")
-# device-memory bandwidth (bytes/s), non-tensor-core f32 peak, dense bf16
-# and dense TF32 tensor-core peaks (FLOP/s) by card, from NVIDIA's data
-# sheets (dense: half the sparse figure); the SXM part is the default
-CARDS = {
-    "H100 PCIe": (2.0e12, 51e12, 756e12, 378e12),
-    "H100 NVL": (3.9e12, 60e12, 835e12, 417.5e12),
-    "H100": (3.35e12, 67e12, 989e12, 494.7e12),
-}
 ARCH = "qwen2-0.5b"
 DECODE_STEPS = 32
 # the FMA flash kernel against its plain version on the same inputs: both
@@ -279,10 +287,13 @@ def emit(phase: str, **fields) -> None:
 
 
 def card_rates(name: str) -> tuple[float, float, float, float]:
-    for key, rates in CARDS.items():
-        if key in name:
-            return rates
-    return CARDS["H100"]
+    """Device-memory bandwidth (bytes/s), non-tensor-core f32 peak, dense
+    bf16 and dense TF32 tensor-core peaks (FLOP/s) of the card ``name``,
+    from the port's card table (``repro_torch.launch.roofline.CARDS``, cited
+    from NVIDIA's data sheet; the SXM part by default)."""
+    from repro_torch.launch.roofline import card
+    c = card(name)
+    return c.hbm_bw, c.f32_flops, c.bf16_flops, c.tf32_flops
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -690,14 +701,15 @@ def _single_lane_run(p, R: int, device: str = "cuda"):
 
 
 def phase_sweep_vs_single(R=4096, horizon=10_000, threads=(8, 40, 64),
-                          width=8, n_seg=4) -> None:
+                          width=8, n_seg=4) -> tuple:
     """A mixed grid run three ways on the card — compacted at ``width``,
     sort-then-cut, and in ``n_seg`` segments (packed ``run_segment``) —
     against each lane's single-lane run (:func:`_single_lane_run`). The
     horizon was cut from 20,000 to 10,000 ticks for the time limit when the
     governor and serving phases came in. The single-lane runs go to
     :data:`SINGLE_LANE_WORKERS` processes on the same card, started first;
-    this process runs the packs meanwhile."""
+    this process runs the packs meanwhile. Returns the grid and its
+    compacted run."""
     import dataclasses as dc
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
@@ -810,6 +822,100 @@ def phase_sweep_vs_single(R=4096, horizon=10_000, threads=(8, 40, 64),
          reference_fault_lanes_card_vs_cpu=cpu_diff)
     assert not metric_diff and not seg_diff and not cpu_diff, \
         (metric_diff, seg_diff, cpu_diff)
+    return pts, ways["compacted"]
+
+
+# the shards phase: two worker processes on the one card for the lane split,
+# two sharded train steps; the prefill on the one-rank mesh does the model
+# phase's arithmetic with its kernel, weights and tokens, so its logits must
+# equal the model phase's bit for bit
+SHARD_DEVICES = ["cuda:0", "cuda:0"]
+SHARD_TRAIN_STEPS = 2
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_shards(sweep_pts, sweep_res, train_losses, cfg, params,
+                 prefill_logits, seed: int) -> None:
+    """Execution across devices on one card (see the module docstring):
+    the lane split against ``sweep_res`` (sweep_vs_single's compacted run of
+    ``sweep_pts``), then, on a one-rank NCCL group, FSDP+TP train steps
+    against ``train_losses`` and a tensor-parallel prefill against
+    ``prefill_logits``."""
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import distribute, param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step, whole
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm_spec
+    from repro_torch.sweep import run_sweep
+    t_phase = time.perf_counter()
+    res = run_sweep(sweep_pts, chunk_size=8, compact=True, device="cuda",
+                    devices=SHARD_DEVICES)
+    differing = [p.name for p in sweep_pts
+                 if res[p.name].__dict__ != sweep_res[p.name].__dict__]
+    emit("shards", check="sweep", devices=SHARD_DEVICES,
+         points=len(sweep_pts), wall_s=res.wall_s,
+         unsharded_wall_s=sweep_res.wall_s,
+         lane_iters=res.lane_iters, unsharded_lane_iters=sweep_res.lane_iters,
+         differing=differing,
+         note="wall includes spawning the two worker processes")
+    assert not differing, differing
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh(1)
+        B, S = TRAIN_SHAPE
+        records = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses = train(TRAIN_ARCH, False, SHARD_TRAIN_STEPS, B, S, None,
+                       model_axis=1, log_every=100, device="cuda",
+                       on_step=records.append)
+        want = train_losses[:SHARD_TRAIN_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        emit("shards", check="fsdp_tp_train", mesh=dict(
+            zip(mesh.mesh_dim_names, mesh.shape)), batch=B, seq_len=S,
+            losses=losses, unsharded_losses=want, loss_rel=rel,
+            ms=[1e3 * r["seconds"] for r in records],
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            note="a train phase's first step ran cold too; bar "
+                 "TRAIN_LOSS_TOL relative")
+        assert max(rel) <= TRAIN_LOSS_TOL, (losses, want)
+
+        shape = SHAPES["prefill_32k"]
+        S = shape.seq_len
+        sp = distribute(params, param_shardings(lm_spec(cfg), mesh,
+                                                "serve"))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab, (1, S), generator=gen,
+                               device="cuda")
+        step = make_prefill_step(cfg, use_kernel=True,
+                                 max_len=S + DECODE_STEPS, mesh=mesh)
+        t0 = time.perf_counter()
+        logits, caches = step(sp, {"tokens": tokens})
+        logits = whole(logits).float().cpu()
+        prefill_s = time.perf_counter() - t0
+        err = float((logits - prefill_logits).abs().max()
+                    / prefill_logits.abs().max())
+        emit("shards", check="tp_prefill", seq_len=S, prefill_s=prefill_s,
+             rel_err=err, equal=torch.equal(logits, prefill_logits),
+             cache_placement=str(caches["g0"]["u0"][0].k.placements),
+             note="against the model phase's prefill, same weights and "
+                  "tokens")
+        assert torch.equal(logits, prefill_logits), err
+        del sp, caches
+    finally:
+        dist.destroy_process_group()
+    emit("shards", check="wall", seconds=time.perf_counter() - t_phase)
 
 
 # a governed or served lane's iterations may exceed its single-shot run's by
@@ -1433,7 +1539,8 @@ def phase_kernels(inputs, launches: int, rates) -> dict:
 
 def phase_model(seed: int) -> tuple:
     """The serving path at full width: prefill through the flash kernel at
-    prefill_32k's length, decode steps, serve_demo. Returns (cfg, params)."""
+    prefill_32k's length, decode steps, serve_demo. Returns (cfg, params,
+    the prefill's last-token logits on the host)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.serve import serve_demo
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
@@ -1459,6 +1566,7 @@ def phase_model(seed: int) -> tuple:
     prefill_s = time.perf_counter() - t0
     assert logits.shape == (B, 1, cfg.padded_vocab), logits.shape
     assert bool(torch.isfinite(logits.float()).all()), "prefill logits"
+    prefill_logits = logits.float().cpu()
     layer_caches = caches["g0"]["u0"]
     assert len(layer_caches) == cfg.n_layers
     assert layer_caches[0].k.shape == (B, S + DECODE_STEPS, cfg.n_kv_heads,
@@ -1494,7 +1602,7 @@ def phase_model(seed: int) -> tuple:
     emit("model", check="serve_demo", requests=12, slots=4,
          steps_fired=srv.steps_fired, members_served=srv.members_served,
          wall_s=wall, note="wall includes init_params at full width")
-    return cfg, params
+    return cfg, params, prefill_logits
 
 
 # the models phase: deepseek-v2-lite-16b at full width (bf16), its prompt
@@ -1882,11 +1990,12 @@ def model_flops_per_token(cfg, seq: int) -> float:
     return 6.0 * n + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * seq
 
 
-def phase_train(seed: int, cpu_runs: dict, rates) -> None:
+def phase_train(seed: int, cpu_runs: dict, rates) -> list:
     """The training half: full-width qwen2-0.5b through train()'s own loop,
     a fixed batch whose loss must fall, smoke-size steps on the card
     against the CPU (``cpu_runs``: futures by architecture), and a restart
-    that must repeat the uninterrupted run's losses bit for bit."""
+    that must repeat the uninterrupted run's losses bit for bit. Returns
+    the full-width run's losses."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, init_state, make_batch
     from repro_torch.launch.steps import make_train_step
@@ -1981,6 +2090,7 @@ def phase_train(seed: int, cpu_runs: dict, rates) -> None:
          resumed=rest)
     assert first == full[:2] and rest == full[2:], (full, first, rest)
     emit("train", check="wall", seconds=time.perf_counter() - t_phase)
+    return losses
 
 
 def _rand(gen, shape, dtype):
@@ -2535,7 +2645,7 @@ def main() -> int:
 
     # the model's serving path, counted the same way
     zero_counts()
-    cfg, params = phase_model(args.seed)
+    cfg, params, prefill_logits = phase_model(args.seed)
     torch.cuda.synchronize()
     flash_launches = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
@@ -2576,7 +2686,7 @@ def main() -> int:
         cpu_runs = {a: pool.submit(_train_cpu_run, a, args.seed)
                     for a in TRAIN_CHECK_ARCHS}
         zero_counts()
-        phase_train(args.seed, cpu_runs, card_rates(name))
+        train_losses = phase_train(args.seed, cpu_runs, card_rates(name))
         torch.cuda.synchronize()
     emit("train_path", launches={"segment_sums": segment_sums.launches,
                                  "flash_attention": flash_attention.launches})
@@ -2603,10 +2713,29 @@ def main() -> int:
     lap("batch_width")
     phase_sweep(args.sweep_horizon)
     lap("sweep")
-    phase_sweep_vs_single()
+    sweep_pts, sweep_res = phase_sweep_vs_single()
     lap("sweep_vs_single")
     emit("sweep_path", launches={"segment_sums": segment_sums.launches,
                                  "flash_attention": flash_attention.launches})
+
+    # execution across devices: the lane split (no kernel on it), the
+    # FSDP+TP steps (plain attention) and the tensor-parallel prefill (the
+    # flash kernel on the rank's local heads, once a layer)
+    zero_counts()
+    phase_shards(sweep_pts, sweep_res, train_losses, cfg, params,
+                 prefill_logits, args.seed)
+    torch.cuda.synchronize()
+    shard_routes = dict(flash_attention.launches_by_route)
+    emit("shards_path", launches={
+        "segment_sums": segment_sums.launches,
+        "flash_attention": flash_attention.launches,
+        "flash_attention_by_route": shard_routes}, ranks=1)
+    assert flash_attention.launches == cfg.n_layers and \
+        shard_routes["wgmma"] == cfg.n_layers and \
+        segment_sums.launches == 0, \
+        ("one wgmma flash launch a layer of the tensor-parallel prefill",
+         flash_attention.launches, shard_routes)
+    lap("shards")
 
     # the governor and the serving layer ride the segmented engine: no TPU
     # kernel lies on these paths either, so their counts stay at 0

@@ -18,6 +18,11 @@ uint16 bits and the manifest's ``dtypes`` names it; restore reads it back
 bit for bit. (The reference stores such a leaf as numpy dtype ``V2`` and
 cannot restore it.) Files of f32, integer and int8 leaves restore in either
 package.
+
+Sharded state: a DTensor leaf is saved whole (gathered on every rank: each
+rank calls ``save``, and only the one built with ``writer=True`` writes),
+and restored into the placement of its ``like`` leaf, the reference's
+``device_put(val, ref.sharding)``.
 """
 from __future__ import annotations
 
@@ -32,14 +37,15 @@ import numpy as np
 import torch
 
 from .. import tree
-from ..device import resolve
+from ..device import is_dtensor, resolve
 from .journal import Journal
 
 
 def _to_host(x) -> tuple[np.ndarray, str]:
-    """A leaf as (a numpy copy to store, its dtype's name)."""
+    """A leaf as (a numpy copy to store, its dtype's name); a DTensor is
+    gathered whole first (a collective)."""
     if isinstance(x, torch.Tensor):
-        t = x.detach().to("cpu")
+        t = (x.full_tensor() if is_dtensor(x) else x).detach().to("cpu")
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16).copy(), \
                 "bfloat16"
@@ -55,9 +61,11 @@ def _from_host(arr: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, host_id: int = 0, async_save=True):
+    def __init__(self, directory: str, host_id: int = 0, async_save=True,
+                 writer: bool = True):
         self.dir = directory
         self.host_id = host_id
+        self.writer = writer        # False: save gathers, writes nothing
         os.makedirs(directory, exist_ok=True)
         self.journal = Journal(os.path.join(directory, "journal.jsonl"))
         self._pool = ThreadPoolExecutor(max_workers=1) if async_save else None
@@ -68,6 +76,8 @@ class Checkpointer:
         """Two-phase save; async unless ``blocking``. The leaves are copied
         to the host before this returns."""
         host = [_to_host(x) for x in tree.leaves(tree_)]
+        if not self.writer:
+            return
         order = self.journal.assign(step)
 
         def work():
@@ -117,8 +127,8 @@ class Checkpointer:
         """Restore into the structure of ``like`` (a tree of tensors): each
         leaf at its ``like`` leaf's dtype, on that leaf's device, or on
         ``device`` when one is named (resolved as every entry point does:
-        "cuda" needs the card). ``step`` None takes the latest committed
-        one."""
+        "cuda" needs the card); a DTensor ``like`` leaf gets its placement.
+        ``step`` None takes the latest committed one."""
         dev = None if device is None else resolve(device)
         if step is None:
             step = self.latest_step()
@@ -139,8 +149,13 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"checkpoint leaf of shape {arr.shape}, "
                                  f"expected {tuple(ref.shape)}")
-            out.append(_from_host(arr, name).to(
-                device=dev or ref.device, dtype=ref.dtype))
+            val = _from_host(arr, name).to(device=dev or ref.device,
+                                           dtype=ref.dtype)
+            if is_dtensor(ref):
+                from torch.distributed.tensor import distribute_tensor
+                val = distribute_tensor(val, ref.device_mesh, ref.placements,
+                                        src_data_rank=None)
+            out.append(val)
         return tree.unflatten(like, out)
 
     def gc(self, keep: int = 3):

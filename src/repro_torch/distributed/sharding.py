@@ -14,20 +14,32 @@ Rule sets:
   * ``serve``: TP only: weights replicated over "data", sharded over
     "model".
 
-A mesh here is a ``{axis name: size}`` mapping and a spec a tuple with one
-entry a dimension: ``None``, an axis name, or a tuple of names (the
-reference's ``PartitionSpec`` entries). Nothing executes a sharding yet: one
-card runs a mesh of one device. The port's parameters and caches keep one
-entry per layer where the reference stacks a leading "layers" axis (always
+Two halves. The planning half takes a mesh as a ``{axis name: size}``
+mapping and gives a spec a tensor: a tuple with one entry a dimension,
+``None``, an axis name, or a tuple of names (the reference's
+``PartitionSpec`` entries). The port's parameters and caches keep one entry
+per layer where the reference stacks a leading "layers" axis (always
 replicated), so the port's specs are the reference's without that axis.
+
+The placement half executes them on DTensor, over a
+``torch.distributed.device_mesh.DeviceMesh`` with the reference's axis
+names (:func:`repro_torch.launch.mesh.make_host_mesh`): a spec becomes one
+``Shard(dim)`` or ``Replicate()`` a mesh axis (:class:`Sharding`, the
+reference's ``NamedSharding``), :func:`distribute` places a tree by a tree
+of them, and :func:`annotate` redistributes an activation under the mesh a
+launcher installed (:func:`set_activation_mesh`), the reference's
+``with_sharding_constraint``. Ops between sharded tensors then run as
+DTensor dispatches them, with the collectives it inserts (as XLA's SPMD
+partitioner does for the reference).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Any, Mapping, NamedTuple, Optional, Sequence, Tuple
 
-from ..models.common import tree_map_specs
+import torch
 
 Mesh = Mapping[str, int]
 Spec = Tuple[object, ...]
@@ -117,6 +129,8 @@ def resolve_spec(shape, axes, mesh: Mesh, rules,
 def param_pspecs(specs, mesh: Mesh, mode: str = "train",
                  report: Optional[ResolveReport] = None):
     """A spec for every ``ParamSpec`` of a spec tree, in its shape."""
+    # imported here: the models import this module for annotate
+    from ..models.common import tree_map_specs
     rules = RULES[mode]
     return tree_map_specs(
         lambda s: resolve_spec(s.shape, s.axes, mesh, rules, report), specs)
@@ -179,3 +193,200 @@ def cache_pspecs(caches, mesh: Mesh):
                          for name, t in zip(c._fields, c)))
     return {g: {u: [layer(c) for c in layers] for u, layers in gt.items()}
             for g, gt in caches.items()}
+
+
+# ---------------------------------------------------------------------------
+# placement on DTensor
+# ---------------------------------------------------------------------------
+
+def _mesh_dict(mesh) -> Mesh:
+    """A ``DeviceMesh`` as the planning half's ``{axis name: size}``."""
+    if isinstance(mesh, Mapping):
+        return mesh
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def placements(spec: Spec, axis_names: Sequence[str]) -> tuple:
+    """A spec as one placement a mesh axis (``axis_names`` in the mesh's
+    order): ``Shard(d)`` on the axes that tensor dimension ``d`` names,
+    ``Replicate()`` on the rest. A dimension over several axes names them
+    in the mesh's order, major first, as DTensor shards them."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(axis_names)
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        idx = [axis_names.index(n) for n in names if n in axis_names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dimension {d} names mesh axes "
+                             f"out of the mesh's order {tuple(axis_names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+class Sharding(NamedTuple):
+    """A tensor's placement on a ``DeviceMesh``: the reference's
+    ``NamedSharding`` (``spec`` its ``PartitionSpec``)."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, self.mesh.mesh_dim_names)
+
+    def place(self, x):
+        """``x`` (the whole tensor, the same on every rank) as a DTensor
+        of this placement; each rank keeps its own shard, no data moves.
+        A DTensor is redistributed."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        if isinstance(x, DTensor):
+            return x.redistribute(self.mesh, self.placements)
+        return distribute_tensor(x, self.mesh, self.placements,
+                                 src_data_rank=None)
+
+
+def param_shardings(specs, mesh, mode: str = "train",
+                    report: Optional[ResolveReport] = None):
+    """A :class:`Sharding` for every ``ParamSpec`` of a spec tree."""
+    from ..models.common import tree_map_specs
+    return tree_map_specs(lambda s: Sharding(mesh, s),
+                          param_pspecs(specs, _mesh_dict(mesh), mode,
+                                       report))
+
+
+def batch_shardings(tree, mesh, batch_dims=None):
+    """Shard the batch dim of every tensor of a batch dict over the data
+    axes; ``batch_dims`` maps a key to its batch dim where it is not 0
+    (``positions3`` (3, B, S): 1). A batch the data axes do not divide is
+    replicated."""
+    batch_dims = batch_dims or {}
+
+    def f(key, leaf):
+        if isinstance(leaf, dict):
+            return {k: f(k, v) for k, v in leaf.items()}
+        return _batch_sharding(mesh, leaf.shape, batch_dims.get(key, 0))
+    return {k: f(k, v) for k, v in tree.items()}
+
+
+def _batch_sharding(mesh, shape, batch_dim: int) -> Sharding:
+    m = _mesh_dict(mesh)
+    if shape[batch_dim] % max(_axis_size(m, data_axes(m)), 1):
+        return Sharding(mesh, (None,) * len(shape))       # tiny batch
+    return Sharding(mesh, batch_pspec(m, len(shape), batch_dim))
+
+
+def cache_shardings(caches, mesh):
+    """A :class:`Sharding` for every field of the port's cache tree
+    (:func:`cache_pspecs`), shaped as it."""
+    specs = cache_pspecs(caches, _mesh_dict(mesh))
+    return {g: {u: [type(c)(*(Sharding(mesh, s) for s in c))
+                    for c in layers] for u, layers in gt.items()}
+            for g, gt in specs.items()}
+
+
+def scalar_sharding(mesh) -> Sharding:
+    return Sharding(mesh, ())
+
+
+def distribute(tree, shardings):
+    """``tree`` (dicts, lists, NamedTuples of tensors) placed by a tree of
+    :class:`Sharding` of the same structure."""
+    if isinstance(shardings, Sharding):
+        return shardings.place(tree)
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(distribute(v, s)
+                            for v, s in zip(tree, shardings)))
+    return type(tree)(distribute(v, s) for v, s in zip(tree, shardings))
+
+
+# ---------------------------------------------------------------------------
+# activation annotations (set by launchers; identity without a mesh)
+# ---------------------------------------------------------------------------
+
+_ACT_MESH: list = [None]
+
+
+def set_activation_mesh(mesh) -> None:
+    """Launchers install their ``DeviceMesh`` here so model code can
+    annotate activations; model code stays mesh-agnostic, and without a
+    mesh (every one-device run) :func:`annotate` is the identity."""
+    _ACT_MESH[0] = mesh
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """Run model code on ``mesh``: :func:`annotate` redistributes under it,
+    and a plain tensor that meets a DTensor in an op (masks, positions,
+    constants the model makes) counts as replicated. Restores the previous
+    activation mesh on exit. ``mesh`` None: nothing changes."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    prev = _ACT_MESH[0]
+    _ACT_MESH[0] = mesh
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _ACT_MESH[0] = prev
+
+
+def place_batch(x, batch_dim: int = 0):
+    """Under an installed mesh, a plain tensor of model inputs (the same on
+    every rank) as a DTensor sharded over the data axes along
+    ``batch_dim`` (replicated where they do not divide it); otherwise ``x``
+    as it is. Token ids must be placed before the embedding of a sharded
+    table: DTensor masks the rows each rank lacks with a buffer shaped as
+    the ids."""
+    mesh = _ACT_MESH[0]
+    if mesh is None or not isinstance(x, torch.Tensor):
+        return x
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return x
+    return _batch_sharding(mesh, x.shape, batch_dim).place(x)
+
+
+def unshard_dim(x, dim: int):
+    """A DTensor ``x`` with dimension ``dim`` whole on every rank (its other
+    placements kept); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == dim else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def annotate(x, *dims):
+    """Redistribute activation ``x``: dims is "batch" | "model" | None per
+    axis (the data axes, the model axis, replicated), each kept only where
+    the axis divides the dimension. The identity unless a launcher
+    installed a mesh and ``x`` is a DTensor."""
+    mesh = _ACT_MESH[0]
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    m = _mesh_dict(mesh)
+    spec = []
+    for d, size in zip(dims, x.shape):
+        if d == "batch":
+            da = data_axes(m)
+            ok = da and size % _axis_size(m, da) == 0
+            spec.append(da if ok else None)
+        elif d == "model":
+            ok = "model" in m and size % m["model"] == 0
+            spec.append("model" if ok else None)
+        else:
+            spec.append(None)
+    spec += [None] * (x.dim() - len(spec))
+    return x.redistribute(mesh, placements(tuple(spec),
+                                           mesh.mesh_dim_names))

@@ -9,13 +9,15 @@ CPU tensors it runs the plain version (:func:`attention_ref`). Anything else
 raises before a launch: a build or launch failure is an error, never a
 fallback. The kernels compute the forward pass only, so a call that autograd
 would record (grad mode on and an input that requires grad) raises on every
-device: on the card the result would carry no gradient.
+device: on the card the result would carry no gradient. A DTensor raises
+too: the caller passes each rank's local shard (the model's tensor-parallel
+path, :func:`repro_torch.models.attention.heads_local`).
 """
 from __future__ import annotations
 
 import torch
 
-from ...device import resolve
+from ...device import refuse_dtensors, resolve
 from . import kernel, kernel_sm90, kernel_tf32
 from .ref import attention_ref
 
@@ -79,6 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, D); k/v: (B, Sk, K, D). Returns (B, Sq, H, D) f32.
     Causal masking is aligned bottom-right (row i sees keys
     j <= i + Sk - Sq), as the reference's ``attention_ref``."""
+    refuse_dtensors("flash_attention", q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the kernels have no backward "
                            "pass; call it on inputs that do not require "

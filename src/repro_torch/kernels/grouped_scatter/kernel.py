@@ -20,6 +20,7 @@ from pathlib import Path
 
 import torch
 
+from ...device import refuse_dtensors
 from ..nvcc_build import build_library, load_library
 from .ref import segment_sums_ref
 
@@ -73,7 +74,9 @@ def segment_sums(seg_ids: torch.Tensor, updates: torch.Tensor,
     """Per-group sums: seg_ids (N,) i32, updates (N, D) f32 or f16 ->
     (num_groups, D) f32. Ids outside [0, num_groups) are dropped; ids may
     come in any order. The kernel has no backward pass: an ``updates`` that
-    requires grad raises under grad mode, on every device."""
+    requires grad raises under grad mode, on every device, and so does a
+    DTensor (pass each rank's local shard)."""
+    refuse_dtensors("segment_sums", seg_ids, updates)
     if torch.is_grad_enabled() and updates.requires_grad:
         raise RuntimeError("segment_sums: the kernel has no backward pass; "
                            "call it on updates that do not require grad, "

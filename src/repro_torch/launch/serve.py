@@ -15,6 +15,10 @@ token-input architectures; the embedding-input ones (musicgen, qwen2-vl)
 are served through ``prefill``/``decode_step`` with ``embeds``, as in the
 reference.
 
+On a ``mesh`` (tensor-parallel serving: the parameters placed by the
+``serve`` rules) the caches are DTensors placed by ``cache_shardings`` and
+each step runs under the mesh; the tokens come back whole to every rank.
+
     python -m repro_torch.launch.serve [--arch A] [--requests N] [--slots S]
 """
 from __future__ import annotations
@@ -30,8 +34,10 @@ import torch
 
 from ..configs import get_config
 from ..device import resolve
+from ..distributed.sharding import cache_shardings, distribute, on_mesh
 from ..models import decode_step, init_params, lm_spec
 from ..models.transformer import lm_init_cache
+from .steps import whole
 
 
 @dataclasses.dataclass
@@ -45,10 +51,11 @@ class Request:
 
 class GroupServer:
     """Fixed-slot continuous batching with dynamic group fire. ``params``
-    lie on ``device`` (default CUDA)."""
+    lie on ``device`` (default CUDA), as DTensors on ``mesh`` when one is
+    given."""
 
     def __init__(self, cfg, params, batch_slots: int = 4,
-                 max_len: int = 256, device=None):
+                 max_len: int = 256, device=None, mesh=None):
         if not cfg.embed_inputs:
             raise ValueError(f"GroupServer feeds token ids; {cfg.name} takes "
                              "embeddings: use prefill/decode_step with embeds")
@@ -59,8 +66,12 @@ class GroupServer:
         self.max_len = max_len
         self.queue: deque[Request] = deque()
         self.active: List[Optional[Request]] = [None] * batch_slots
+        self.mesh = mesh
         self.caches = lm_init_cache(cfg, batch_slots, max_len,
                                     device=self.device)
+        if mesh is not None:
+            self.caches = distribute(self.caches,
+                                     cache_shardings(self.caches, mesh))
         self.pos = 0
         self._order = 0
         self.steps_fired = 0
@@ -90,11 +101,12 @@ class GroupServer:
         for i, r in enumerate(self.active):
             if r is not None:
                 toks[i, 0] = (r.out[-1] if r.out else r.prompt[-1])
-        nxt_logits, self.caches = decode_step(
-            self.params, self.cfg, tokens=torch.from_numpy(toks),
-            caches=self.caches, pos=self.pos, device=self.device)
+        with on_mesh(self.mesh):
+            nxt_logits, self.caches = decode_step(
+                self.params, self.cfg, tokens=torch.from_numpy(toks),
+                caches=self.caches, pos=self.pos, device=self.device)
         self.pos += 1
-        nxt = torch.argmax(nxt_logits[:, -1], dim=-1).cpu().numpy()
+        nxt = torch.argmax(whole(nxt_logits)[:, -1], dim=-1).cpu().numpy()
         self.steps_fired += 1
         # commit in order: requests complete in their arrival order
         done = []

@@ -13,7 +13,9 @@ Modes:
     projections, so the latent cache is never expanded.
 
 With ``use_kernel`` a global layer's full-sequence attention goes through the
-hand-written CUDA flash kernel (:mod:`repro_torch.kernels.flash_attention`);
+hand-written CUDA flash kernel (:mod:`repro_torch.kernels.flash_attention`;
+on each rank's local heads under a mesh, :func:`heads_local`, as the plain
+attention is);
 local layers, MLA and every other path take the plain einsum/softmax path
 ``_sdpa`` (query-chunked by ``_sdpa_chunked`` when ``cfg.attn_chunk`` is set
 and shorter than the sequence), as in the reference.
@@ -25,6 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..device import is_dtensor
 from ..kernels.flash_attention import flash_attention
 from .common import spec
 from .layers import apply_rope, apply_mrope
@@ -134,6 +137,72 @@ def _sdpa_chunked(q, k, v, scale, window: Optional[int], chunk: int):
     return torch.cat(outs, dim=1)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a local
+    attention's gradients come back transposed, and DTensor's backward of
+    the projections views them as rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def heads_local(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)``, an attention whose output (B, S, H, ...) or
+    (B, S, H * Dv) keeps the batch first and the heads third. DTensors
+    (a mesh) run it on each rank's local batch and heads: q, k and v are
+    placed with the batch over the data axes and the heads over "model"
+    (when both H and K divide by it, else whole: never a forced split), each
+    rank runs ``fn`` on its shards, and the output comes back as a DTensor
+    of the same placement. Attention never mixes heads, and a contiguous
+    split keeps query head h with kv head h // (H / K) on the same rank;
+    autograd runs through ``to_local`` and ``from_local``."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from ..distributed.sharding import data_axes
+    mesh = q.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    B, H, K = q.shape[0], q.shape[2], k.shape[2]
+    dsz = 1
+    for a in data_axes(sizes):
+        dsz *= sizes[a]
+    msz = sizes.get("model", 1)
+    pl = []
+    for name in mesh.mesh_dim_names:
+        if name in data_axes(sizes) and B % dsz == 0:
+            pl.append(Shard(0))
+        elif name == "model" and H % msz == 0 and K % msz == 0:
+            pl.append(Shard(2))
+        else:
+            pl.append(Replicate())
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    out = fn(*(_ContiguousGrad.apply(t.to_local()) for t in (q, k, v)),
+             *args)
+    return DTensor.from_local(out, mesh, pl)
+
+
+def _index_copy(t, dim: int, index, src):
+    """``t.index_copy(dim, index, src)``: a copy of ``t`` with the slices
+    ``index`` of ``dim`` taken from ``src``. A DTensor ``t`` (a cache on a
+    mesh) is written shard by shard, whole along ``dim``; DTensor has no
+    rule of its own for the op."""
+    if not is_dtensor(t):
+        return t.index_copy(dim, index, src)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from ..distributed.sharding import unshard_dim
+    t = unshard_dim(t, dim)
+    mesh, pl = t.device_mesh, t.placements
+    src = (src.redistribute(mesh, pl) if is_dtensor(src) else
+           distribute_tensor(src, mesh, pl, src_data_rank=None))
+    return DTensor.from_local(
+        t.to_local().index_copy(dim, index, src.to_local()), mesh, pl)
+
+
 def _pad_seq(arr, target: int, axis: int = 1):
     if arr.shape[axis] >= target:
         return arr
@@ -173,13 +242,15 @@ def gqa_attend(p, x, cfg, kind: str, mode: str, positions=None,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         if use_kernel and window is None:
-            out = flash_attention(q, k, v, causal=True, scale=scale)
+            out = heads_local(lambda q, k, v: flash_attention(
+                q, k, v, causal=True, scale=scale), q, k, v)
             out = out.reshape(B, S, cfg.n_heads * hd)
         elif cfg.attn_chunk and S > cfg.attn_chunk:
-            out = _sdpa_chunked(q, k, v, scale, window, cfg.attn_chunk)
+            out = heads_local(_sdpa_chunked, q, k, v, scale, window,
+                              cfg.attn_chunk)
         else:
             mask = _causal_mask(S, S, window, device=x.device)[None, None]
-            out = _sdpa(q, k, v, mask, scale)
+            out = heads_local(_sdpa, q, k, v, mask, scale)
         out = out.to(x.dtype) @ p["wo"].to(x.dtype)
         new_cache = None
         if mode == "prefill":
@@ -208,8 +279,8 @@ def gqa_attend(p, x, cfg, kind: str, mode: str, positions=None,
     slot = (pos % Sc).reshape(1)
     # write the single new position at `slot` (into copies: the caller's
     # cache stays as it was, as with the reference's immutable arrays)
-    nk = cache.k.index_copy(1, slot, k.to(cache.k.dtype))
-    nv = cache.v.index_copy(1, slot, v.to(cache.v.dtype))
+    nk = _index_copy(cache.k, 1, slot, k.to(cache.k.dtype))
+    nv = _index_copy(cache.v, 1, slot, v.to(cache.v.dtype))
     kpos = torch.arange(Sc, dtype=torch.int64, device=x.device)
     if window is None:
         valid = kpos <= pos
@@ -219,7 +290,7 @@ def gqa_attend(p, x, cfg, kind: str, mode: str, positions=None,
         abs_pos = pos - ((slot - kpos) % Sc)
         valid = (abs_pos >= 0) & (abs_pos >= pos - window + 1)
     mask = valid[None, None, None, :]
-    out = _sdpa(q, nk, nv, mask[:, 0], scale)
+    out = heads_local(_sdpa, q, nk, nv, mask[:, 0], scale)
     out = out.to(x.dtype) @ p["wo"].to(x.dtype)
     return out, KVCache(k=nk, v=nv)
 
@@ -294,10 +365,11 @@ def mla_attend(p, x, cfg, mode: str, positions=None,
             [k_nope, krope_r[:, :, None, :].expand(B, S, H, dr)
              .to(k_nope.dtype)], dim=-1)
         if cfg.attn_chunk and S > cfg.attn_chunk:
-            out = _sdpa_chunked(q_cat, k_cat, v, scale, None, cfg.attn_chunk)
+            out = heads_local(_sdpa_chunked, q_cat, k_cat, v, scale, None,
+                              cfg.attn_chunk)
         else:
             mask = _causal_mask(S, S, device=x.device)[None, None]
-            out = _sdpa(q_cat, k_cat, v, mask, scale)
+            out = heads_local(_sdpa, q_cat, k_cat, v, mask, scale)
         out = out.to(x.dtype) @ p["wo"].to(x.dtype)
         new_cache = None
         if mode == "prefill":
@@ -313,8 +385,8 @@ def mla_attend(p, x, cfg, mode: str, positions=None,
     q_rope = apply_rope(q_rope, posb, cfg.rope_theta)
     krope_r = apply_rope(krope[:, :, None, :], posb, cfg.rope_theta)[:, :, 0]
     at = pos.reshape(1)
-    nckv = cache.ckv.index_copy(1, at, ckv.to(cache.ckv.dtype))
-    nkrope = cache.krope.index_copy(1, at, krope_r.to(cache.krope.dtype))
+    nckv = _index_copy(cache.ckv, 1, at, ckv.to(cache.ckv.dtype))
+    nkrope = _index_copy(cache.krope, 1, at, krope_r.to(cache.krope.dtype))
     Sc = nckv.shape[1]
     # absorb W_uk into the query: q_lat (B, 1, H, R)
     w_uk = p["w_uk"].reshape(R, H, dn)

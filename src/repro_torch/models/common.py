@@ -5,7 +5,7 @@ A spec tree is nested dicts (and, for the layers of a group, lists) with
 ``ParamSpec`` leaves; :func:`init_params` returns the same tree with tensors.
 The logical axis names ("embed", "heads", "kv", "mlp", "vocab", ...) are
 resolved to mesh axes by :mod:`repro_torch.distributed.sharding`, which
-plans a sharding; nothing executes one yet.
+also places a tree of them on a device mesh as DTensors.
 """
 from __future__ import annotations
 

@@ -104,7 +104,8 @@ def embed_spec(vocab: int, d: int):
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    # F.embedding, not indexing: DTensor has a rule for its backward
+    return F.embedding(tokens, p["table"])
 
 
 def unembed_spec(d: int, vocab: int, n_heads: int = 1):

@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..distributed.sharding import annotate, place_batch, unshard_dim
 from .layers import (embed_spec, embed, unembed_spec, unembed,
                      rmsnorm_spec, rmsnorm)
 from .transformer import lm_block_specs, group_apply_layers
@@ -64,10 +65,13 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
         pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
     act_dtype = getattr(torch, cfg.act_dtype)
     if cfg.embed_inputs:
-        x = embed(params["embed"], torch.as_tensor(tokens, device=dev))
+        x = embed(params["embed"],
+                  place_batch(torch.as_tensor(tokens, device=dev)))
     else:
         x = torch.as_tensor(embeds, device=dev)
-    x = x.to(act_dtype)
+    # the reference's sequence-parallel residual; the batch only under a
+    # mesh here (see transformer.group_apply_layers)
+    x = annotate(x.to(act_dtype), "batch", None, None)
     if positions3 is not None:
         positions3 = torch.as_tensor(positions3, device=dev)
 
@@ -90,6 +94,8 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
         # chunked-CE path: the loss builds the logits chunk by chunk
         return LMOutput(logits=x, caches=None, aux_loss=aux_total)
     logits = unembed(params["head"], x)
+    logits = annotate(logits, *(("batch",) + (None,) * (logits.dim() - 2)
+                                + ("model",)))
     return LMOutput(logits=logits,
                     caches=new_caches if mode != "train" else None,
                     aux_loss=aux_total)
@@ -100,7 +106,9 @@ def _ce_sums(logits, labels, vocab: int, zloss: float = 0.0):
     positions counted). logits (..., V_padded); labels (...) integer, those
     below 0 masked out; padded vocabulary columns are masked at -1e30."""
     V = logits.shape[-1]
-    lg = logits.to(torch.float32)
+    # a DTensor's vocab shards are gathered first: the gather of the label
+    # columns below needs whole rows
+    lg = unshard_dim(logits.to(torch.float32), -1)
     if V > vocab:
         pad = torch.arange(V, device=lg.device) < vocab
         lg = torch.where(pad, lg, -1e30)
@@ -128,7 +136,10 @@ def chunked_cross_entropy(head_params, x, labels, cfg):
         raise ValueError(f"sequence {S} is not a multiple of loss_chunk {c}")
 
     def body(xc, lc):
-        return _ce_sums(unembed(head_params, xc), lc, cfg.vocab, cfg.zloss)
+        logits = unembed(head_params, xc)
+        logits = annotate(logits, *(("batch",) + (None,) * (logits.dim() - 2)
+                                    + ("model",)))
+        return _ce_sums(logits, lc, cfg.vocab, cfg.zloss)
 
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     n = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -14,9 +14,9 @@ schedule on tensors:
 
 The token axis carries a leading shard dimension (``cfg.moe_data_shards``),
 so the capacity grid is per data shard and the axis changes which tokens
-are dropped; it is kept for that. The reference's ``annotate`` calls are
-sharding hints for XLA (the identity on one device) and have no counterpart
-here.
+are dropped; it is kept for that. The ``annotate`` calls stand where the
+reference's do: the identity without a mesh, a DTensor redistribution under
+one (:mod:`repro_torch.distributed.sharding`).
 
 Capacity overflow (rank >= C within a group) drops to the residual stream —
 the analogue of the timeout abort; :func:`suggest_capacity` is the §4.6.1
@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import annotate
 from .common import spec
 from .layers import mlp_spec, mlp
 
@@ -88,7 +89,7 @@ def moe(p, x, cfg, cap: int | None = None):
     T = (B * S) // ds                                  # tokens per shard
     C = cap or capacity(T, k, E, cfg.capacity_factor)
 
-    xt = x.reshape(ds, T, d)
+    xt = annotate(x.reshape(ds, T, d), "batch", None, None)
     logits = xt @ p["router"].to(x.dtype)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gates, eidx = torch.topk(probs, k, dim=-1, sorted=True)   # (ds, T, k)
@@ -119,21 +120,27 @@ def moe(p, x, cfg, cap: int | None = None):
         1, dest, gflat.gather(-1, order))[:, :E * C]
     xt_pad = torch.cat([xt, xt.new_zeros((ds, 1, d))], dim=1)
     h = xt_pad.gather(1, slot_token[..., None].expand(ds, E * C, d))
-    h = h.reshape(ds, E, C, d)
+    h = annotate(h, "batch", "model", None)       # (ds, E*C, d) pre-grid
+    h = annotate(h.reshape(ds, E, C, d), "batch", "model", None, None)
 
     # ---- one dense matmul per group ----
     act = F.silu(torch.einsum("xecd,edf->xecf", h,
                               p["wi_gate"].to(x.dtype)))
     up = torch.einsum("xecd,edf->xecf", h, p["wi_up"].to(x.dtype))
     oe = torch.einsum("xecf,efd->xecd", act * up, p["wo"].to(x.dtype))
+    oe = annotate(oe, "batch", "model", None, None)
 
     # ---- combine (one weighted scatter-add per group member) ----
     contrib = (oe.reshape(ds, E * C, d).to(torch.float32)
                * slot_gate[..., None])
+    contrib = annotate(contrib, "batch", "model", None)
     rows = (slot_token + torch.arange(ds, device=dev)[:, None] * (T + 1))
-    y = torch.zeros((ds * (T + 1), d), dtype=torch.float32, device=dev)
+    y = annotate(torch.zeros((ds, T + 1, d), dtype=torch.float32,
+                             device=dev), "batch", None, None)
+    y = y.reshape(ds * (T + 1), d)
     y.index_add_(0, rows.reshape(-1), contrib.reshape(ds * E * C, d))
-    y = y.reshape(ds, T + 1, d)[:, :T].to(x.dtype)
+    y = annotate(y.reshape(ds, T + 1, d)[:, :T], "batch", None,
+                 None).to(x.dtype)
 
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], xt)

@@ -5,9 +5,9 @@ Chunked SSD (the paper's Listing 1): the sequence is split into chunks of
 length Q; within a chunk the output is an attention-like quadratic form
 masked by the decay kernel; across chunks a linear recurrence carries the
 (H, P, N) state (the reference's ``lax.scan`` over chunks, a loop over the
-chunks here). Decode is the pure recurrence. The reference's ``annotate``
-calls are sharding hints (the identity on one device) and have no
-counterpart here.
+chunks here). Decode is the pure recurrence. The ``annotate`` calls
+stand where the reference's do: the identity without a mesh, a DTensor
+redistribution under one (:mod:`repro_torch.distributed.sharding`).
 
 Shapes: d_inner = expand * d_model; H = d_inner / head_dim (P = head_dim);
 N = ssm_state. B and C projections are shared across heads (n_groups = 1).
@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import annotate
 from .common import spec
 
 
@@ -93,7 +94,8 @@ def ssd(p, x, cfg, mode: str, state: SSDState | None = None):
 
     if mode in ("train", "prefill"):
         xbc, conv_tail = _conv1d(p, xbc)
-        xs = xbc[..., :di].reshape(B, S, H, P)
+        xs = annotate(xbc[..., :di].reshape(B, S, H, P),
+                      "batch", None, "model", None)
         Bm = xbc[..., di:di + N]                          # (B,S,N)
         Cm = xbc[..., di + N:]                            # (B,S,N)
 
@@ -109,10 +111,12 @@ def ssd(p, x, cfg, mode: str, state: SSDState | None = None):
         # 1. intra-chunk (attention-like with decay kernel), in the
         # reference's explicit contraction order
         L = torch.exp(_segsum(da.permute(0, 1, 3, 2)))    # (B,nc,H,Q,Q)
+        L = annotate(L, "batch", None, "model", None, None)
         scores = torch.einsum("bcqn,bckn->bcqk", cc, bc)  # (B,nc,Q,Q)
         w = scores[:, :, None].to(f32) * L                # (B,nc,H,Q,Q)
         xdt = xc.to(f32) * dtc.to(f32)[..., None]         # (B,nc,Q,H,P)
         y_diag = torch.einsum("bchqk,bckhp->bcqhp", w, xdt)
+        y_diag = annotate(y_diag, "batch", None, None, "model", None)
 
         # 2. per-chunk end states
         dec_end = torch.exp(da.sum(dim=2, keepdim=True)
@@ -120,6 +124,7 @@ def ssd(p, x, cfg, mode: str, state: SSDState | None = None):
         states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", bc.to(f32),
                               (dtc * dec_end).to(f32),
                               xc.to(f32))                 # (B,nc,H,P,N)
+        states = annotate(states, "batch", None, "model", None, None)
 
         # 3. inter-chunk recurrence over chunk states
         chunk_decay = torch.exp(da.sum(dim=2))            # (B,nc,H)
@@ -137,7 +142,8 @@ def ssd(p, x, cfg, mode: str, state: SSDState | None = None):
         y_off = torch.einsum("bcqn,bcqh,bchpn->bcqhp", cc.to(f32),
                              dec_in.to(f32), h_prev)
 
-        y = (y_diag + y_off).reshape(B, S, H, P)
+        y = annotate((y_diag + y_off).reshape(B, S, H, P),
+                     "batch", None, "model", None)
         y = y + p["d_skip"].to(f32)[None, None, :, None] * xs.to(f32)
         y = _gated_norm(y.reshape(B, S, di), z, p)
         out = y.to(x.dtype) @ p["w_out"].to(x.dtype)

@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..distributed.sharding import annotate
 from .attention import (gqa_spec, gqa_attend, gqa_cache_len, KVCache,
                         mla_spec, mla_attend, MLACache)
 from .layers import rmsnorm_spec, rmsnorm, mlp_spec, mlp
@@ -157,6 +158,12 @@ def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
     new_caches = {f"u{i}": [] for i in range(len(unit))}
 
     def unit_body(x, r):
+        # the residual stream at the block boundary: the reference shards
+        # it over "model" along the sequence as well (sequence parallelism);
+        # DTensor cannot flatten a sequence-sharded activation into the rows
+        # of a matmul, forward or backward (torch 2.11 refuses, 2.13 makes
+        # non-contiguous views), so under a mesh the port shards the batch
+        x = annotate(x, "batch", None, None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ncs = []
         for i, kind in enumerate(unit):

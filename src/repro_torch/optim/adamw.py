@@ -84,9 +84,11 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def init(params, state_bits: int = 32) -> AdamWState:
-    """Zero moments at ``state_bits`` on the parameters' devices; step 0."""
+    """Zero moments at ``state_bits`` on the parameters' devices (a
+    DTensor parameter's moments are DTensors of its placement); step 0."""
     def z(p):
-        return _pack(torch.zeros(p.shape, dtype=F32, device=p.device),
+        return _pack(torch.zeros_like(p, dtype=F32,
+                                      memory_format=torch.contiguous_format),
                      state_bits)
     dev = tree.leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),

@@ -2,15 +2,16 @@
 ``repro.sweep``).
 
 Runs whole (protocol × workload × thread-count × ...) grids as packs of
-lanes on one card — one sequence of torch calls steps every lane of a
+lanes on a card — one sequence of torch calls steps every lane of a
 pack — with bit-exact parity to per-config ``simulate()`` runs.
 
 Quickstart::
 
     from repro_torch.sweep import grid, run_sweep, summarize
-    pts = grid(["mysql", "group"], HOT, [64, 256], horizon=200_000)
-    res = run_sweep(pts)                 # device=None: the CUDA card
-    print("\\n".join(summarize(res)))
+    if __name__ == "__main__":   # lanes spread over every visible card
+        pts = grid(["mysql", "group"], HOT, [64, 256], horizon=200_000)
+        res = run_sweep(pts)     # in spawned workers, one a card
+        print("\\n".join(summarize(res)))
 """
 from .grid import SweepPoint, point, grid, zip_grid, expand, PROTOCOLS_ALL
 from .runner import run_sweep, summarize, SweepResults, BucketInfo

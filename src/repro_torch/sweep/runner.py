@@ -28,10 +28,19 @@ What the port has in place of JAX's machinery:
   compiles nothing per shape (eager torch, no CUDA-graph captures), so
   ``SweepResults.n_compiles`` is 0; the key stays so that store documents
   of the two packages stay interchangeable.
-* **Lane sharding.** The reference shards lanes over a device mesh and is
-  a no-op on one device. The port runs every pack on one device and
-  accepts ``shard`` with that one-device behaviour; lanes across several
-  GPUs wait for ``distributed/``.
+* **Lane sharding.** The reference shards each pack's lane axis over a
+  device mesh (``_shard_lanes``) and is a no-op on one device. With
+  ``shard=True`` and several devices (every visible card, or ``devices=[...]``)
+  the port splits each bucket's lanes by the same rule (:func:`_shard_lanes`:
+  the lane axis padded to a multiple of the device count by replicating the
+  last lane, device ``i`` holding the ``i``-th contiguous block; a pad slot
+  is never run or read) and runs each device's share in a spawned worker
+  process of its own (:func:`_run_sharded`), each with :func:`_auto_chunk`'s
+  width. Processes, not threads: the engine step is host-dispatch bound
+  (~800 torch calls an iteration), and threads would serialise on the GIL.
+  A lane's result does not depend on its packmates, so the split leaves
+  every result bit-identical. The segmented runners
+  (:func:`run_packed_segment`) keep one device.
 * **Lane width.** :func:`_auto_chunk` returns 1 on the CPU (the
   reference's single-device choice) and :data:`CUDA_CHUNK` on the card,
   set from ``chip_smoke.py``'s ``batch_width`` measurement (see the
@@ -40,8 +49,10 @@ What the port has in place of JAX's machinery:
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 from typing import Iterable, Sequence
 
 import torch
@@ -477,10 +488,103 @@ def _run_bucket_chunks(family: str, bpts: list[SweepPoint],
     return n_chunks, 0, lane_iters, ()
 
 
+# ---------------------------------------------------------------------------
+# lanes across devices
+# ---------------------------------------------------------------------------
+
+def _shard_lanes(n_lanes: int, n_dev: int) -> tuple[list[list[int]], int]:
+    """The reference's ``_shard_lanes`` rule on a lane axis of ``n_lanes``:
+    pad it to ``g``, the next multiple of ``n_dev``, by replicating the last
+    lane, and give device ``i`` the lanes ``[i*g/n_dev, (i+1)*g/n_dev)``.
+    Returns (each device's lane indices, pad slots as ``n_lanes - 1``;
+    ``g``). One device: the lanes as they are."""
+    if n_dev <= 1:
+        return [list(range(n_lanes))], n_lanes
+    g = -(-n_lanes // n_dev) * n_dev
+    idx = list(range(n_lanes)) + [n_lanes - 1] * (g - n_lanes)
+    w = g // n_dev
+    return [idx[i * w:(i + 1) * w] for i in range(n_dev)], g
+
+
+def _split(points: list[SweepPoint], thread_bucket, n_dev: int
+           ) -> list[list[SweepPoint]]:
+    """Each device's points: every bucket's lanes, in the compaction
+    queue's order (densest estimate first), split by :func:`_shard_lanes`
+    with pad slots dropped. Bucket ``b``'s block ``j`` goes to device
+    ``(j + b) % n_dev``, so the densest block of each bucket lands on a
+    different device (a pack runs until its slowest lane finishes)."""
+    buckets: dict[tuple, list[SweepPoint]] = {}
+    for p in points:
+        buckets.setdefault(_bucket_key(p, thread_bucket), []).append(p)
+    shares: list[list[SweepPoint]] = [[] for _ in range(n_dev)]
+    for b, bpts in enumerate(buckets.values()):
+        order = sorted(bpts, key=_est_iters, reverse=True)
+        blocks, _ = _shard_lanes(len(order), n_dev)
+        seen: set[int] = set()
+        for j, block in enumerate(blocks):
+            for i in block:
+                if i not in seen:           # pad slots are never run
+                    seen.add(i)
+                    shares[(j + b) % n_dev].append(order[i])
+    return shares
+
+
+def _shard_worker(points: list[SweepPoint], device: str, kw: dict
+                  ) -> SweepResults:
+    """One device's share, run in its own spawned process."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    return run_sweep(points, shard=False, device=device, **kw)
+
+
+def _merge_buckets(parts: list[SweepResults]) -> list[BucketInfo]:
+    """One ``BucketInfo`` a bucket over the devices' shares: counts summed,
+    the wall the longest share's, the repack logs concatenated."""
+    merged: dict[tuple, BucketInfo] = {}
+    for part in parts:
+        for b in part.buckets:
+            key = (b.family, b.kind, b.n_rows, b.pad_threads, b.pad_len)
+            m = merged.get(key)
+            merged[key] = b if m is None else dataclasses.replace(
+                m, n_points=m.n_points + b.n_points,
+                n_chunks=m.n_chunks + b.n_chunks,
+                wall_s=max(m.wall_s, b.wall_s),
+                n_repacks=m.n_repacks + b.n_repacks,
+                lane_iters=m.lane_iters + b.lane_iters,
+                repack_log=m.repack_log + b.repack_log)
+    return list(merged.values())
+
+
+def _run_sharded(points: list[SweepPoint], devices: list, thread_bucket,
+                 kw: dict) -> SweepResults:
+    """:func:`run_sweep` over several devices: one spawned worker process a
+    device, each running its share (:func:`_split`) on its device."""
+    t0 = time.perf_counter()
+    shares = _split(points, thread_bucket, len(devices))
+    work = [(share, str(d)) for share, d in zip(shares, devices) if share]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(work), mp_context=ctx) as pool:
+        futs = [pool.submit(_shard_worker, share, d,
+                            dict(kw, thread_bucket=thread_bucket))
+                for share, d in work]
+        parts = [f.result() for f in futs]
+    metrics, wall_us = {}, {}
+    for part in parts:
+        metrics.update(part.metrics)
+        wall_us.update(part.wall_us)
+    return SweepResults(points=points, metrics=metrics, wall_us=wall_us,
+                        buckets=_merge_buckets(parts), n_compiles=0,
+                        wall_s=time.perf_counter() - t0)
+
+
 def run_sweep(points: Iterable[SweepPoint], *, chunk_size: int | None = None,
               thread_bucket: str = "pow2", shard: bool = True,
               compact: bool | None = None, slice_iters: int | None = None,
-              verbose: bool = False, device=None) -> SweepResults:
+              verbose: bool = False, device=None,
+              devices: Sequence | None = None) -> SweepResults:
     """Run every point on ``device`` (default: CUDA), packed per shape
     bucket. Order is preserved.
 
@@ -491,9 +595,15 @@ def run_sweep(points: Iterable[SweepPoint], *, chunk_size: int | None = None,
     ``True`` forces compaction even at width 1. ``slice_iters`` overrides
     the per-call iteration budget (default: ~1/8 of the densest lane's
     estimate, floor 256). ``thread_bucket`` picks the bucketing strategy
-    (see :func:`_bucket_key`). ``shard`` is the reference's lane sharding
-    over devices, a no-op on one card. Results are bit-identical on every
-    path.
+    (see :func:`_bucket_key`). ``shard`` splits the lanes over ``devices``
+    (default: every visible card when ``device`` is CUDA), one worker
+    process a device (see the module docstring; ``devices`` may name one
+    card twice); with one device it does nothing, as in the reference.
+    Results are bit-identical on every path. The workers are spawned, so a
+    script that calls ``run_sweep`` where more than one card is visible (or
+    with ``devices=``) must do so under ``if __name__ == "__main__":``;
+    ``shard=False`` or ``device="cuda:0"`` keeps the run in the caller's
+    process on one card.
     """
     points = list(points)
     names = [p.name for p in points]
@@ -512,6 +622,13 @@ def run_sweep(points: Iterable[SweepPoint], *, chunk_size: int | None = None,
                          "iteration budget (or None for the adaptive "
                          "default)")
     dev = resolve(device)
+    if devices is None and dev.type == "cuda" and dev.index is None:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if shard and devices is not None and len(devices) > 1:
+        return _run_sharded(points, [resolve(d) for d in devices],
+                            thread_bucket,
+                            dict(chunk_size=chunk_size, compact=compact,
+                                 slice_iters=slice_iters, verbose=verbose))
     chunk_size = chunk_size or _auto_chunk(dev)
     if compact is None:
         compact = chunk_size > 1

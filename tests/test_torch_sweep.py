@@ -9,10 +9,10 @@ each package loads from the other.
 Cases of ``tests/test_sweep.py`` with no counterpart on one card:
 
 * ``TestLaneSharding::test_nondividing_lane_count_pads_and_engages`` — it
-  shards the lane axis over a 3-device host mesh. The port runs a pack on
-  one device; ``run_sweep(shard=...)`` is accepted and does nothing, which
-  is the reference's own single-device behaviour (checked below). Lanes
-  across GPUs wait for ``distributed/``.
+  shards the lane axis over a 3-device host mesh. Its counterpart is in
+  ``test_torch_sweep_shards.py`` (three CPU shards, one worker process
+  each); on one device ``run_sweep(shard=...)`` does nothing, which is the
+  reference's own single-device behaviour (checked below).
 * ``TestCompileAccounting::test_64_grid_one_compile_per_bucket``,
   ``::test_compacted_width_ladder_bounds_executables`` and
   ``::test_chunk_reuse_second_sweep_compiles_nothing`` — they count JAX's

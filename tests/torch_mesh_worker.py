@@ -1,0 +1,235 @@
+"""Ranks of the port's sharded runs over gloo (a helper of the
+``test_torch_mesh_*.py`` files, run in spawned processes; imports no JAX).
+
+:func:`run_ranks` starts ``world`` spawned processes, each of which joins a
+gloo group at a free port, runs one of the ``*_rank`` functions below and
+leaves the group again; the pytest process itself never initialises a
+process group or writes its environment.
+"""
+import multiprocessing
+import pickle
+import socket
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+CPU = "cpu"
+RANK_TIMEOUT = 300
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(fn, rank: int, world: int, port: int, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        return fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, *args):
+    """``fn(rank, *args)`` on ``world`` gloo ranks; returns every rank's
+    result, in rank order."""
+    port = free_port()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(world, mp_context=ctx) as pool:
+        futs = [pool.submit(_rank_main, fn, r, world, port, args)
+                for r in range(world)]
+        return [f.result(timeout=RANK_TIMEOUT) for f in futs]
+
+
+def _load(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+# --------------------------------------------------------------- training
+
+def train_rank(rank, path, model_axis):
+    """The reference's weights and batches (a pickle of numpy trees) through
+    the port's sharded ``make_train_step`` at bf16 and f32 activations;
+    returns ``{act dtype: losses}``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm_spec
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw
+    d = _load(path)
+    mesh = make_host_mesh(model_axis)
+    out = {}
+    for act in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                                  act_dtype=act)
+        params = distribute(params_from_numpy(d["params"], device=CPU),
+                            param_shardings(lm_spec(cfg), mesh, "train"))
+        opt = adamw.init(params)
+        step = make_train_step(cfg, adamw.AdamWConfig(**d["opt"]),
+                               device=CPU, mesh=mesh)
+        losses = []
+        for b in d["batches"]:
+            b = {k: torch.from_numpy(v) for k, v in b.items()}
+            b = distribute(b, batch_shardings(b, mesh))
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+        out[act] = losses
+    return out
+
+
+def restart_rank(rank, ckpt_root, model_axis):
+    """``train()`` on the mesh: four steps straight, then two steps and a
+    fresh ``train()`` that resumes from their checkpoint."""
+    from repro_torch.launch.train import train
+    kw = dict(arch="qwen2-0.5b", smoke=True, batch=8, seq=32, ckpt_every=2,
+              model_axis=model_axis, device=CPU, log_every=100)
+    full = train(steps=4, ckpt_dir=f"{ckpt_root}/a", **kw)
+    first = train(steps=2, ckpt_dir=f"{ckpt_root}/b", **kw)
+    rest = train(steps=4, ckpt_dir=f"{ckpt_root}/b", **kw)
+    return full, first, rest
+
+
+# ---------------------------------------------------------------- serving
+
+def _numpy_tree(tree):
+    from repro_torch.launch.steps import whole
+    from repro_torch.models.convert import caches_to_numpy
+    return caches_to_numpy({g: {u: [type(c)(*(whole(t) for t in c))
+                                    for c in layers]
+                                for u, layers in gt.items()}
+                            for g, gt in tree.items()})
+
+
+def serve_rank(rank, path, model_axis):
+    """Tensor-parallel prefill and decode on the reference's weights (f32
+    activations), the plain and the kernel path (on the CPU the kernel
+    wrapper runs its plain version on each rank's local heads); the whole
+    logits and caches. Then a GroupServer on the mesh, the kernel
+    wrappers' refusal of DTensors, and the placements of ``d["specs"]``
+    (:func:`placements_of`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute, param_shardings
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.grouped_scatter import segment_sums
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import GroupServer, Request
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, whole)
+    from repro_torch.models import lm_spec
+    from repro_torch.models.convert import params_from_numpy
+    d = _load(path)
+    mesh = make_host_mesh(model_axis)
+    out = {}
+    for arch, tree in d["params"].items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  act_dtype="float32")
+        params = distribute(params_from_numpy(tree, device=CPU),
+                            param_shardings(lm_spec(cfg), mesh, "serve"))
+        S = d["tokens"].shape[1] - 1
+        pre_tok = torch.from_numpy(d["tokens"][:, :S])
+        dec_tok = torch.from_numpy(d["tokens"][:, S:])
+        for kernel in (False, True):
+            pre = make_prefill_step(cfg, use_kernel=kernel, max_len=S + 1,
+                                    device=CPU, mesh=mesh)
+            logits, caches = pre(params, {"tokens": pre_tok})
+            serve = make_serve_step(cfg, device=CPU, mesh=mesh)
+            nxt, caches2 = serve(params, {"tokens": dec_tok,
+                                          "caches": caches, "pos": S})
+            out[arch, kernel] = dict(
+                logits=whole(logits).numpy(), caches=_numpy_tree(caches),
+                next=whole(nxt).numpy(), caches2=_numpy_tree(caches2))
+    # GroupServer on the mesh against one device (f32 activations: bf16
+    # logits of the smoke vocabulary tie, and a tie's argmax follows the
+    # last bit)
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              act_dtype="float32")
+    tree = d["params"]["qwen2-0.5b"]
+    tokens = {}
+    for m in (None, mesh):
+        params = params_from_numpy(tree, device=CPU)
+        if m is not None:
+            params = distribute(params, param_shardings(lm_spec(cfg), m,
+                                                        "serve"))
+        srv = GroupServer(cfg, params, batch_slots=4, max_len=32,
+                          device=CPU, mesh=m)
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 8,
+                                                   dtype=np.int32),
+                        max_new=3 + i % 3) for i in range(6)]
+        for r in reqs:
+            srv.submit(r)
+        while srv.step():
+            pass
+        tokens[m is not None] = [r.out for r in reqs]
+    out["server"] = tokens
+    # the kernel wrappers refuse DTensors
+    x = distribute(torch.zeros((2, 4, 2, 16)), _rep(mesh))
+    refused = []
+    for call in (lambda: flash_attention(x, x, x),
+                 lambda: segment_sums(
+                     distribute(torch.zeros(4, dtype=torch.int32),
+                                _rep(mesh)),
+                     distribute(torch.zeros((4, 2)), _rep(mesh)), 2)):
+        try:
+            call()
+        except TypeError as e:
+            refused.append("DTensor" in str(e))
+    out["refused"] = refused
+    out["placed"] = placements_of(mesh, d["specs"])
+    return out
+
+
+def _rep(mesh):
+    from repro_torch.distributed.sharding import scalar_sharding
+    return scalar_sharding(mesh)
+
+
+def placements_of(mesh, specs_by_name):
+    """Each named (shape, spec) as ``arange`` placed by the port's
+    shardings: this rank's mesh coordinate and local shards."""
+    import math
+    from repro_torch.distributed.sharding import Sharding
+    shards = {}
+    for name, (shape, spec) in specs_by_name.items():
+        x = torch.arange(math.prod(shape), dtype=torch.int32).reshape(shape)
+        shards[name] = Sharding(mesh, spec).place(x).to_local().numpy()
+    return tuple(mesh.get_coordinate()), shards
+
+
+# ------------------------------------------------------------ collectives
+
+def collective_rank(rank, model_axis):
+    """The collectives of one sharded matmul (x (8, 64) over "data", w
+    (64, 32) over "model" along its input dim: a partial sum, reduced) and
+    of one FSDP all-gather of a (64, 32) weight sharded over "data", counted
+    by ``CollectiveCounter``."""
+    from repro_torch.distributed.sharding import Sharding
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import CollectiveCounter
+    mesh = make_host_mesh(model_axis)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((8, 64), generator=g)
+    w = torch.randn((64, 32), generator=g)
+    dx = Sharding(mesh, ("data", "model")).place(x)
+    dw = Sharding(mesh, ("model", None)).place(w)
+    with CollectiveCounter() as mm:
+        y = (dx @ dw).redistribute(mesh, Sharding(mesh, ("data", None))
+                                   .placements)
+    fw = Sharding(mesh, ("data", None)).place(w)
+    with CollectiveCounter() as ag:
+        full = fw.redistribute(mesh, Sharding(mesh, ()).placements)
+    ok = bool(torch.allclose(y.full_tensor(), x @ w, rtol=1e-5, atol=1e-5)
+              and torch.equal(full.to_local(), w))
+    return (mm.per_op, mm.calls), (ag.per_op, ag.calls), ok
