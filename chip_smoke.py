@@ -129,6 +129,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     the flash kernel on the rank's local heads) equal to the
                     model phase's logits bit for bit; launch counts zeroed before and
                     read after (24 flash launches, one a layer, per rank).
+                    Then the MoE layer on the mesh: deepseek-v2-lite-16b at
+                    full width (the models phase's configuration, weights
+                    of --seed placed by DTensor.from_local, which shares
+                    their storage on one rank): under deterministic
+                    algorithms, a one-device prefill of the models phase's
+                    4,096-token prompt (bf16, attn_chunk 1,024) and 8
+                    decode steps, then the same on the mesh: logits equal
+                    bit for bit to each other and to the models phase's,
+                    tokens and each MoE layer's drop count equal; prefill s,
+                    decode ms a step and peak GiB of both. Two FSDP+TP train
+                    steps of each MoE architecture at its smoke config (f32,
+                    the train phase's batch) against the train phase's card
+                    step and a one-device second step (TRAIN_LOSS_TOL).
                     NCCL refuses two ranks on one card, so the mesh has one
                     rank (tools/multicard_smoke.py runs four)
   governed          run_governed at full width: the engine phase's table and
@@ -210,7 +223,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), with both bounds
                     (3xTF32 on the tensor cores, f32 on the CUDA cores) and
                     ptxas's registers and spills of its D = 64 instance (no
-                    spill allowed). gemma3-12b at full width (d 3840,
+                    spill allowed). The f32 routes at the other head dims,
+                    at gemma3-12b's global shape (B=1, S=8,192, H=16, K=8):
+                    fma at D = 240 and tf32x3 at D = 16, 32 and 128, each
+                    against the plain version (1e-5), timed beside SDPA in
+                    f32, with the byte, CUDA-core
+                    and (tf32x3) 3xTF32 bounds. gemma3-12b at full width (d 3840,
                     16/8 heads of 240, vocab 262,144; bf16 weights from
                     --seed) cut to one unit of its layout (5 local + 1
                     global, of 48 layers): one bf16 prefill of 4,096 tokens
@@ -841,12 +859,14 @@ def _free_port() -> int:
 
 
 def phase_shards(sweep_pts, sweep_res, train_losses, cfg, params,
-                 prefill_logits, seed: int) -> None:
+                 prefill_logits, moe_ref, seed: int) -> None:
     """Execution across devices on one card (see the module docstring):
     the lane split against ``sweep_res`` (sweep_vs_single's compacted run of
     ``sweep_pts``), then, on a one-rank NCCL group, FSDP+TP train steps
-    against ``train_losses`` and a tensor-parallel prefill against
-    ``prefill_logits``."""
+    against ``train_losses``, a tensor-parallel prefill against
+    ``prefill_logits``, and the MoE layer on the mesh against ``moe_ref``
+    (the models phase's deterministic prefill logits, the train phase's
+    smoke-size card losses: :func:`shards_moe`)."""
     import torch.distributed as dist
     from repro_torch.configs import SHAPES
     from repro_torch.distributed.sharding import distribute, param_shardings
@@ -913,9 +933,154 @@ def phase_shards(sweep_pts, sweep_res, train_losses, cfg, params,
                   "tokens")
         assert torch.equal(logits, prefill_logits), err
         del sp, caches
+        shards_moe(mesh, moe_ref, seed)
     finally:
         dist.destroy_process_group()
     emit("shards", check="wall", seconds=time.perf_counter() - t_phase)
+
+
+SHARD_MOE_DECODE_STEPS = 8
+SHARD_MOE_ARCHS = ("deepseek-v2-lite-16b", "arctic-480b")
+
+
+def _place_shared(params, shardings):
+    """``params`` as DTensors of ``shardings``' placements on a one-rank
+    mesh: each rank's shard is the whole tensor, so ``DTensor.from_local``
+    keeps the storage (no second copy of the weights)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import Sharding
+    if isinstance(shardings, Sharding):
+        return DTensor.from_local(params, shardings.mesh,
+                                  shardings.placements, run_check=False)
+    if isinstance(params, dict):
+        return {k: _place_shared(v, shardings[k]) for k, v in params.items()}
+    return [_place_shared(v, sh) for v, sh in zip(params, shardings)]
+
+
+def _moe_serve_run(cfg, params, tokens, mesh):
+    """A prefill of ``tokens`` (``cfg``'s attn_chunk) and
+    SHARD_MOE_DECODE_STEPS greedy decode steps, on one device or on
+    ``mesh``: logits (host, f32), tokens, each MoE layer's drops, prefill
+    s, decode ms a step."""
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, whole)
+    B, S = tokens.shape
+    torch.cuda.synchronize()
+    with MoEStatsLog() as log:
+        t0 = time.perf_counter()
+        logits, caches = make_prefill_step(
+            cfg, use_kernel=True, max_len=S + SHARD_MOE_DECODE_STEPS,
+            mesh=mesh)(params, {"tokens": tokens})
+        logits = whole(logits)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    drops = [int(whole(st.dropped)) for st in log.stats]
+    serve = make_serve_step(cfg, mesh=mesh)
+    nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    toks = [nxt]
+    t0 = time.perf_counter()
+    for i in range(SHARD_MOE_DECODE_STEPS):
+        nxt, caches = serve(params, {"tokens": nxt[:, None],
+                                     "caches": caches, "pos": S + i})
+        nxt = whole(nxt)
+        toks.append(nxt)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / SHARD_MOE_DECODE_STEPS
+    return dict(logits=logits.float().cpu(),
+                tokens=torch.stack(toks, 1).cpu(), drops=drops,
+                prefill_s=prefill_s, decode_ms=decode_ms)
+
+
+def shards_moe(mesh, moe_ref, seed: int) -> None:
+    """The MoE layer on the one-rank mesh (see the module docstring):
+    full-width deepseek-v2-lite-16b serving against one device and the
+    models phase, then smoke-size FSDP+TP steps of the MoE architectures
+    against the train phase's card steps and one device."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, lm_spec
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(MODELS_ARCH),
+                              attn_chunk=MODELS_ATTN_CHUNK)
+    torch.cuda.empty_cache()
+    params = init_params(lm_spec(cfg), seed, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (1, MODELS_SEQ), generator=gen,
+                           device="cuda")
+    runs, peaks = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, m in (("one_device", None), ("mesh", mesh)):
+            p = params if m is None else _place_shared(
+                params, param_shardings(lm_spec(cfg), m, "serve"))
+            torch.cuda.reset_peak_memory_stats()
+            runs[name] = _moe_serve_run(cfg, p, tokens, m)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+            del p
+    finally:
+        torch.use_deterministic_algorithms(False)
+    one, sh = runs["one_device"], runs["mesh"]
+    equal = torch.equal(sh["logits"], one["logits"])
+    models_equal = torch.equal(one["logits"], moe_ref["logits"])
+    emit("shards", check="moe_tp_serve", arch=MODELS_ARCH, batch=1,
+         seq_len=MODELS_SEQ, attn_chunk=MODELS_ATTN_CHUNK,
+         act_dtype=cfg.act_dtype, deterministic=True,
+         logits_equal=equal, logits_equal_models_phase=models_equal,
+         rel_err=_rel_err(sh["logits"], one["logits"]),
+         decode_steps=SHARD_MOE_DECODE_STEPS,
+         tokens_equal=torch.equal(sh["tokens"], one["tokens"]),
+         tokens=sh["tokens"][0].tolist(),
+         drops_equal=sh["drops"] == one["drops"], moe_layers=len(sh["drops"]),
+         dropped_all_layers=sum(sh["drops"]),
+         prefill_s=sh["prefill_s"], one_device_prefill_s=one["prefill_s"],
+         decode_ms_per_step=sh["decode_ms"],
+         one_device_decode_ms_per_step=one["decode_ms"],
+         peak_memory_gib=peaks["mesh"],
+         one_device_peak_memory_gib=peaks["one_device"],
+         note="weights placed by DTensor.from_local (storage shared); "
+              "times include each run's first call")
+    assert equal and models_equal, (equal, models_equal)
+    assert torch.equal(sh["tokens"], one["tokens"]), (sh["tokens"],
+                                                      one["tokens"])
+    assert sh["drops"] == one["drops"] and len(sh["drops"]) == sum(
+        reps for unit, reps in cfg.layout for _, m in unit if "moe" in m)
+    del params, runs
+    torch.cuda.empty_cache()
+
+    for arch in SHARD_MOE_ARCHS:
+        a_cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                    act_dtype="float32")
+        base = _to(init_params(lm_spec(a_cfg), seed, device="cpu"), "cuda")
+        batch, _ = make_batch(DataConfig(seed=seed), a_cfg,
+                              *TRAIN_CHECK_SHAPE, init_state(), device="cuda")
+        losses = {}
+        for name, m in (("one_device", None), ("mesh", mesh)):
+            p, b = base, batch
+            if m is not None:
+                p = distribute(base, param_shardings(lm_spec(a_cfg), m,
+                                                     "train"))
+                b = distribute(batch, batch_shardings(batch, m))
+            opt = adamw.init(p)
+            step = make_train_step(a_cfg, adamw.AdamWConfig(
+                **FIXED_OPT_SMOKE), mesh=m)
+            losses[name] = []
+            for _ in range(SHARD_TRAIN_STEPS):
+                p, opt, met = step(p, opt, b)
+                losses[name].append(float(met["loss"]))
+        want = [moe_ref["train_losses"][arch]] + losses["one_device"][1:]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["mesh"], want)]
+        emit("shards", check="moe_fsdp_tp_train", arch=arch,
+             act_dtype="float32", batch=TRAIN_CHECK_SHAPE[0],
+             seq_len=TRAIN_CHECK_SHAPE[1], losses=losses["mesh"],
+             want=want, one_device_losses=losses["one_device"],
+             loss_rel=rel, tol=TRAIN_LOSS_TOL,
+             note="step 1 against the train phase's card step, step 2 "
+                  "against one device; the same batch both steps")
+        assert max(rel) <= TRAIN_LOSS_TOL, (arch, losses, want)
 
 
 # a governed or served lane's iterations may exceed its single-shot run's by
@@ -1721,7 +1886,7 @@ def _arch_cpu_run(arch: str, seed: int) -> dict:
     return _arch_run(arch, seed, "cpu")
 
 
-class _MoEStatsLog:
+class MoEStatsLog:
     """Records the MoEStats of every MoE layer a forward runs (by wrapping
     the transformer module's ``moe`` while active); read after the run."""
 
@@ -1750,7 +1915,8 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
     their smoke configs on the card against their CPU runs (``cpu_runs``:
     futures by architecture). Returns the flash launches expected of it by
     route: each architecture's on the route the table gives f32 inputs at
-    its head dim."""
+    its head dim, and the deterministic bf16 chunked prefill's logits (the
+    shards phase holds its mesh prefill to them)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels.flash_attention import flash_attention, route
     from repro_torch.kernels.flash_attention.ops import ROUTES
@@ -1780,7 +1946,7 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
                              max_len=S + DECODE_STEPS)
     step(params, {"tokens": tokens[:, :256]})          # first-call warm-up
     torch.cuda.synchronize()
-    with _MoEStatsLog() as log:
+    with MoEStatsLog() as log:
         t0 = time.perf_counter()
         logits, caches = step(params, {"tokens": tokens})
         torch.cuda.synchronize()
@@ -1809,6 +1975,7 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
                     params, {"tokens": tokens})
     finally:
         torch.use_deterministic_algorithms(False)
+    moe_logits = pair["bfloat16", MODELS_ATTN_CHUNK].float().cpu()
     rel = _rel_err(pair["float32", MODELS_ATTN_CHUNK], pair["float32", 0])
     bf16_rel = _rel_err(pair["bfloat16", MODELS_ATTN_CHUNK],
                         pair["bfloat16", 0])
@@ -1887,7 +2054,7 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
         assert want["launches"] == 0, "the CPU runs the plain version"
         expected[f32_route] += got["launches"]
     emit("models", check="wall", seconds=time.perf_counter() - t_phase)
-    return expected
+    return expected, moe_logits
 
 
 # the train phase: qwen2-0.5b at full width (f32 parameters and AdamW
@@ -1995,7 +2162,8 @@ def phase_train(seed: int, cpu_runs: dict, rates) -> list:
     a fixed batch whose loss must fall, smoke-size steps on the card
     against the CPU (``cpu_runs``: futures by architecture), and a restart
     that must repeat the uninterrupted run's losses bit for bit. Returns
-    the full-width run's losses."""
+    the full-width run's losses and the smoke-size card steps' losses by
+    architecture."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, init_state, make_batch
     from repro_torch.launch.steps import make_train_step
@@ -2062,9 +2230,11 @@ def phase_train(seed: int, cpu_runs: dict, rates) -> list:
     torch.cuda.empty_cache()
 
     # smoke-size steps of every token-input architecture, card against CPU
+    card_losses = {}
     for arch, fut in cpu_runs.items():
-        err = train_step_errors(_train_step_run(arch, seed, "cuda"),
-                                fut.result())
+        got = _train_step_run(arch, seed, "cuda")
+        card_losses[arch] = got["loss"]
+        err = train_step_errors(got, fut.result())
         emit("train", check="card_vs_cpu", arch=arch, act_dtype="float32",
              **err, note="errors as fractions of their bars")
         assert max(v for k, v in err.items() if k != "flip_share") <= 1.0 \
@@ -2090,7 +2260,7 @@ def phase_train(seed: int, cpu_runs: dict, rates) -> list:
          resumed=rest)
     assert first == full[:2] and rest == full[2:], (full, first, rest)
     emit("train", check="wall", seconds=time.perf_counter() - t_phase)
-    return losses
+    return losses, card_losses
 
 
 def _rand(gen, shape, dtype):
@@ -2328,6 +2498,62 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
                      "tf32_flops": 3 * flops, "bytes": nbytes}}
     emit("flash", check="f32_route", **row)
     return row
+
+
+# the f32 routes at the other head dims, at gemma3-12b's global-layer shape
+# (B=1, S=8,192, H=16, K=8): fma at D = 240, tf32x3 at D = 16, 32 and 128
+F32_OTHER_DIMS = (240, 16, 32, 128)
+
+
+def flash_f32_other_dims(gen, rates) -> list:
+    """The f32 flash routes at the head dims the main path's shape does not
+    take (``F32_OTHER_DIMS``): each checked against the plain version
+    (SAME_INPUTS_TOL), then kernel and SDPA in f32 timed in turns (kernel,
+    SDPA, SDPA, kernel), with the byte bound,
+    the CUDA-core f32 bound and, on tf32x3, the 3xTF32 bound. Returns the
+    rows."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention, route)
+    B, S, H, K = 1, 8_192, 16, 8
+    bw, f32_peak, _, tf32_peak = rates
+    rows = []
+    for D in F32_OTHER_DIMS:
+        q = _rand(gen, (B, S, H, D), torch.float32)
+        k, v = (_rand(gen, (B, S, K, D), torch.float32) for _ in range(2))
+        rt = route(q, k, v)
+        err = float((flash_attention(q, k, v)
+                     - bf16_chunked(q, k, v, attention_ref)).abs().max())
+        assert err <= SAME_INPUTS_TOL, ("f32 route", D, rt, err)
+
+        def kernel_run():
+            return flash_attention(q, k, v)
+        library_run, library_call = sdpa_library_run(q, k, v, gqa=False)
+        turns = [(fn, cuda_ms(fn, reps=5)) for fn in
+                 (kernel_run, library_run, library_run, kernel_run)]
+        kernel_runs = [t for fn, t in turns if fn is kernel_run]
+        library_runs = [t for fn, t in turns if fn is library_run]
+        flops = 4 * H * D * B * S * (S + 1) // 2
+        nbytes = (B * S * H * D + 2 * B * S * K * D) * 4 + B * S * H * D * 4
+        bounds = {"bytes": nbytes / bw * 1e3,
+                  "f32_cores": flops / f32_peak * 1e3}
+        if rt == "tf32x3":
+            bounds["tf32x3"] = 3 * flops / tf32_peak * 1e3
+        ops = bounds.get("tf32x3", bounds["f32_cores"])
+        row = {"kernel_route": rt, "D": D, "shape": [B, S, S, H, K, D],
+               "max_abs_err": err, "tol": SAME_INPUTS_TOL,
+               "ms": sum(kernel_runs) / len(kernel_runs),
+               "kernel_ms_runs": kernel_runs,
+               "bound_ms": max(bounds["bytes"], ops),
+               "bound_by": "bytes" if bounds["bytes"] >= ops
+               else "operations", "bounds_ms": bounds,
+               "library_ms": sum(library_runs) / 2,
+               "library_ms_runs": library_runs,
+               "library_call": library_call + " on f32 inputs",
+               "card": gpu_query("name", "clocks.sm", "power.limit")}
+        emit("flash", check="f32_other_dims", **row)
+        rows.append(row)
+        del q, k, v
+    return rows
 
 
 # gemma3-12b at full width, its depth cut from 48 layers (8 units of 5 local
@@ -2568,6 +2794,7 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     emit("flash", check="main_path_shape", **row)
     tf32_row = flash_f32_route(q.float(), k.float(), v.float(), ptxas, rates,
                                tf32_launches)
+    tf32_row["other_dims"] = flash_f32_other_dims(gen, rates)
     gemma3_launches = gemma3_path(seed)
     row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas, gemma3_launches)
     return row, tf32_row
@@ -2664,7 +2891,7 @@ def main() -> int:
         cpu_runs = {a: pool.submit(_arch_cpu_run, a, args.seed)
                     for a in SMOKE_ARCHS}
         zero_counts()
-        models_launches = phase_models(args.seed, cpu_runs)
+        models_launches, moe_logits = phase_models(args.seed, cpu_runs)
         torch.cuda.synchronize()
     emit("models_path", launches={
         "segment_sums": segment_sums.launches,
@@ -2686,7 +2913,8 @@ def main() -> int:
         cpu_runs = {a: pool.submit(_train_cpu_run, a, args.seed)
                     for a in TRAIN_CHECK_ARCHS}
         zero_counts()
-        train_losses = phase_train(args.seed, cpu_runs, card_rates(name))
+        train_losses, smoke_losses = phase_train(args.seed, cpu_runs,
+                                                 card_rates(name))
         torch.cuda.synchronize()
     emit("train_path", launches={"segment_sums": segment_sums.launches,
                                  "flash_attention": flash_attention.launches})
@@ -2719,11 +2947,13 @@ def main() -> int:
                                  "flash_attention": flash_attention.launches})
 
     # execution across devices: the lane split (no kernel on it), the
-    # FSDP+TP steps (plain attention) and the tensor-parallel prefill (the
-    # flash kernel on the rank's local heads, once a layer)
+    # FSDP+TP steps (plain attention), the tensor-parallel prefill (the
+    # flash kernel on the rank's local heads, once a layer) and the MoE
+    # layer on the mesh (MLA's plain path: no kernel)
     zero_counts()
     phase_shards(sweep_pts, sweep_res, train_losses, cfg, params,
-                 prefill_logits, args.seed)
+                 prefill_logits, {"logits": moe_logits,
+                                  "train_losses": smoke_losses}, args.seed)
     torch.cuda.synchronize()
     shard_routes = dict(flash_attention.launches_by_route)
     emit("shards_path", launches={

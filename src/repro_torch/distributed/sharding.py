@@ -271,8 +271,11 @@ def batch_shardings(tree, mesh, batch_dims=None):
 
 def _batch_sharding(mesh, shape, batch_dim: int) -> Sharding:
     m = _mesh_dict(mesh)
-    if shape[batch_dim] % max(_axis_size(m, data_axes(m)), 1):
-        return Sharding(mesh, (None,) * len(shape))       # tiny batch
+    dsz = _axis_size(m, data_axes(m))
+    if dsz <= 1 or shape[batch_dim] % dsz:
+        # one data rank, or a tiny batch: whole (torch 2.13's DTensor
+        # cannot flatten a batch of 1 that is "sharded" over one rank)
+        return Sharding(mesh, (None,) * len(shape))
     return Sharding(mesh, batch_pspec(m, len(shape), batch_dim))
 
 
@@ -367,7 +370,8 @@ def unshard_dim(x, dim: int):
 def annotate(x, *dims):
     """Redistribute activation ``x``: dims is "batch" | "model" | None per
     axis (the data axes, the model axis, replicated), each kept only where
-    the axis divides the dimension. The identity unless a launcher
+    the axis divides the dimension (the data axes also only where they hold
+    more than one rank). The identity unless a launcher
     installed a mesh and ``x`` is a DTensor."""
     mesh = _ACT_MESH[0]
     if mesh is None:
@@ -380,7 +384,7 @@ def annotate(x, *dims):
     for d, size in zip(dims, x.shape):
         if d == "batch":
             da = data_axes(m)
-            ok = da and size % _axis_size(m, da) == 0
+            ok = _axis_size(m, da) > 1 and size % _axis_size(m, da) == 0
             spec.append(da if ok else None)
         elif d == "model":
             ok = "model" in m and size % m["model"] == 0
@@ -390,3 +394,73 @@ def annotate(x, *dims):
     spec += [None] * (x.dim() - len(spec))
     return x.redistribute(mesh, placements(tuple(spec),
                                            mesh.mesh_dim_names))
+
+
+def reduce_partial(x):
+    """A DTensor ``x`` with its partial sums reduced (each ``Partial``
+    placement made ``Replicate``); any other tensor as it is. A row-parallel
+    product comes out partial, and torch 2.11's DTensor cannot add a
+    sharded bias to it."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a local
+    computation's gradients can come back transposed, and DTensor's
+    backward of the projections views them as rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def shard_local(fn, args, dims, out_dims):
+    """``fn(*args)`` on each rank's shards when ``args`` hold DTensors (a
+    mesh), else as it is. ``dims[i]`` is ``(batch dim, model dim)`` of
+    argument i (None: whole): each DTensor argument is placed with its
+    batch dim over the data axes and its model dim over "model", ``fn``
+    runs on the local tensors (other arguments pass as they are), and its
+    output, a tensor or a tuple, comes back as DTensors placed alike by
+    ``out_dims``. An axis splits only where it holds more than one rank and
+    divides every dimension named for it, else it keeps them whole (never
+    a forced split). ``fn``
+    must compute each output shard from the same shards of its inputs (the
+    rows of a batch, the heads of attention or of an SSM). Autograd runs
+    through ``to_local`` and ``from_local``; the gradients of the local
+    inputs are made contiguous. Ops whose sharding rule differs between
+    torch versions run here on plain tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    placed = [(a, d) for a, d in zip(args, dims) if isinstance(a, DTensor)]
+    if not placed:
+        return fn(*args)
+    mesh = placed[0][0].device_mesh
+    sizes = _mesh_dict(mesh)
+    da = data_axes(sizes)
+    dsz = _axis_size(sizes, da)
+    msz = sizes.get("model", 1)
+    split_data = dsz > 1 and all(bd is None or a.shape[bd] % dsz == 0
+                                 for a, (bd, _) in placed)
+    split_model = msz > 1 and all(md is None or a.shape[md] % msz == 0
+                                  for a, (_, md) in placed)
+
+    def pl(bd, md):
+        return tuple(
+            Shard(bd) if n in da and split_data and bd is not None else
+            Shard(md) if n == "model" and split_model and md is not None
+            else Replicate() for n in mesh.mesh_dim_names)
+    local = [_ContiguousGrad.apply(a.redistribute(mesh, pl(*d)).to_local())
+             if isinstance(a, DTensor) else a for a, d in zip(args, dims)]
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(t, mesh, pl(*d), run_check=False)
+                     for t, d in zip(out, out_dims))
+    return DTensor.from_local(out, mesh, pl(*out_dims), run_check=False)

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import is_dtensor
+from ..distributed.sharding import shard_local
 from ..kernels.flash_attention import flash_attention
 from .common import spec
 from .layers import apply_rope, apply_mrope
@@ -137,53 +138,33 @@ def _sdpa_chunked(q, k, v, scale, window: Optional[int], chunk: int):
     return torch.cat(outs, dim=1)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward makes the gradient contiguous: a local
-    attention's gradients come back transposed, and DTensor's backward of
-    the projections views them as rows."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def heads_local(fn, q, k, v, *args):
     """``fn(q, k, v, *args)``, an attention whose output (B, S, H, ...) or
     (B, S, H * Dv) keeps the batch first and the heads third. DTensors
-    (a mesh) run it on each rank's local batch and heads: q, k and v are
+    (a mesh) run it on each rank's local batch and heads
+    (:func:`~repro_torch.distributed.sharding.shard_local`): q, k and v are
     placed with the batch over the data axes and the heads over "model"
-    (when both H and K divide by it, else whole: never a forced split), each
-    rank runs ``fn`` on its shards, and the output comes back as a DTensor
-    of the same placement. Attention never mixes heads, and a contiguous
-    split keeps query head h with kv head h // (H / K) on the same rank;
-    autograd runs through ``to_local`` and ``from_local``."""
-    if not is_dtensor(q):
-        return fn(q, k, v, *args)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    from ..distributed.sharding import data_axes
-    mesh = q.device_mesh
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    B, H, K = q.shape[0], q.shape[2], k.shape[2]
-    dsz = 1
-    for a in data_axes(sizes):
-        dsz *= sizes[a]
-    msz = sizes.get("model", 1)
-    pl = []
-    for name in mesh.mesh_dim_names:
-        if name in data_axes(sizes) and B % dsz == 0:
-            pl.append(Shard(0))
-        elif name == "model" and H % msz == 0 and K % msz == 0:
-            pl.append(Shard(2))
-        else:
-            pl.append(Replicate())
-    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
-    out = fn(*(_ContiguousGrad.apply(t.to_local()) for t in (q, k, v)),
-             *args)
-    return DTensor.from_local(out, mesh, pl)
+    (when both H and K divide by it, else whole: never a forced split),
+    each rank runs ``fn`` on its shards, and the output comes back as a
+    DTensor of the same placement. Attention never mixes heads, and a
+    contiguous split keeps query head h with kv head h // (H / K) on the
+    same rank."""
+    return shard_local(lambda q, k, v: fn(q, k, v, *args), (q, k, v),
+                       ((0, 2),) * 3, (0, 2))
+
+
+def _roll(t, shifts: int, dim: int):
+    """``torch.roll(t, shifts, dim)``; a DTensor ``t`` is rolled shard by
+    shard, whole along ``dim`` (torch 2.11's DTensor has no rule for
+    ``roll``)."""
+    if not is_dtensor(t):
+        return torch.roll(t, shifts=shifts, dims=dim)
+    from torch.distributed.tensor import DTensor
+    from ..distributed.sharding import unshard_dim
+    t = unshard_dim(t, dim)
+    return DTensor.from_local(torch.roll(t.to_local(), shifts=shifts,
+                                         dims=dim), t.device_mesh,
+                              t.placements, run_check=False)
 
 
 def _index_copy(t, dim: int, index, src):
@@ -259,8 +240,8 @@ def gqa_attend(p, x, cfg, kind: str, mode: str, positions=None,
             kt, vt = k[:, S - cl:], v[:, S - cl:]
             if window is not None and cl == window:
                 # ring order: absolute position p lives at slot p % window
-                kt = torch.roll(kt, shifts=S % window, dims=1)
-                vt = torch.roll(vt, shifts=S % window, dims=1)
+                kt = _roll(kt, S % window, 1)
+                vt = _roll(vt, S % window, 1)
             new_cache = KVCache(k=_pad_seq(kt, cap), v=_pad_seq(vt, cap))
         return out, new_cache
 

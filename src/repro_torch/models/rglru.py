@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import reduce_partial
 from .common import spec
 
 C_RGLRU = 8.0
@@ -52,8 +53,12 @@ class RGLRUState(NamedTuple):
 
 
 def _gates(p, u):
-    r = torch.sigmoid(u @ p["w_a"].to(u.dtype) + p["b_a"].to(u.dtype))
-    i = torch.sigmoid(u @ p["w_x"].to(u.dtype) + p["b_x"].to(u.dtype))
+    # on a mesh the (lru, lru) products come out partial over "model":
+    # reduced before the bias, which is sharded (reduce_partial)
+    r = torch.sigmoid(reduce_partial(u @ p["w_a"].to(u.dtype))
+                      + p["b_a"].to(u.dtype))
+    i = torch.sigmoid(reduce_partial(u @ p["w_x"].to(u.dtype))
+                      + p["b_x"].to(u.dtype))
     lam = F.softplus(p["log_lambda"].to(torch.float32))
     log_a = -C_RGLRU * lam * r.to(torch.float32)
     a = torch.exp(log_a)

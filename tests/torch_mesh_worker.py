@@ -53,38 +53,59 @@ def _load(path):
 
 # --------------------------------------------------------------- training
 
+def _sharded_losses(tree, batches, cfg, opt_kw, mesh):
+    """The port's sharded ``make_train_step`` from the reference's weights
+    (numpy, stacked) over its batches (numpy); the losses."""
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm_spec
+    from repro_torch.models.convert import _tensor, params_from_numpy
+    from repro_torch.optim import adamw
+    params = distribute(params_from_numpy(tree, device=CPU),
+                        param_shardings(lm_spec(cfg), mesh, "train"))
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(**opt_kw), device=CPU,
+                           mesh=mesh)
+    losses = []
+    for b in batches:
+        b = {k: _tensor(v, CPU) for k, v in b.items()}      # bf16 embeds
+        b = distribute(b, batch_shardings(b, mesh, {"positions3": 1}))
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+    return losses
+
+
 def train_rank(rank, path, model_axis):
     """The reference's weights and batches (a pickle of numpy trees) through
     the port's sharded ``make_train_step`` at bf16 and f32 activations;
     returns ``{act dtype: losses}``."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import (batch_shardings,
-                                                  distribute,
-                                                  param_shardings)
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import lm_spec
-    from repro_torch.models.convert import params_from_numpy
-    from repro_torch.optim import adamw
     d = _load(path)
     mesh = make_host_mesh(model_axis)
+    return {act: _sharded_losses(
+        d["params"], d["batches"], dataclasses.replace(
+            get_config("qwen2-0.5b", smoke=True), act_dtype=act), d["opt"],
+        mesh) for act in ("bfloat16", "float32")}
+
+
+def _train_jobs(d, mesh):
+    """Each ``(arch, act, ds)`` of ``d["train"]`` through the port's sharded
+    ``make_train_step``, activations ``act`` and ``moe_data_shards``
+    ``ds``, on the reference's weights and batches; ``{job: losses}``."""
+    import dataclasses
+    from repro_torch.configs import get_config
     out = {}
-    for act in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
-                                  act_dtype=act)
-        params = distribute(params_from_numpy(d["params"], device=CPU),
-                            param_shardings(lm_spec(cfg), mesh, "train"))
-        opt = adamw.init(params)
-        step = make_train_step(cfg, adamw.AdamWConfig(**d["opt"]),
-                               device=CPU, mesh=mesh)
-        losses = []
-        for b in d["batches"]:
-            b = {k: torch.from_numpy(v) for k, v in b.items()}
-            b = distribute(b, batch_shardings(b, mesh))
-            params, opt, m = step(params, opt, b)
-            losses.append(float(m["loss"]))
-        out[act] = losses
+    for arch, act, ds in d["train"]:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  act_dtype=act, moe_data_shards=ds)
+        batches = d["batches"][arch]
+        out[arch, act, ds] = _sharded_losses(
+            d["params"][arch], batches, cfg,
+            {"decay_steps": max(len(batches), 2)}, mesh)
     return out
 
 
@@ -111,6 +132,104 @@ def _numpy_tree(tree):
                             for g, gt in tree.items()})
 
 
+def _prefill_decode(tree, cfg, tokens, mesh, kernel: bool):
+    """Tensor-parallel prefill of ``tokens[:, :-1]`` and one decode step of
+    the last token (f32 activations, the reference's weights ``tree``
+    placed by the ``serve`` rules; ``kernel``: the flash wrapper's path);
+    the whole logits, caches and next token, numpy."""
+    import dataclasses
+    from repro_torch.distributed.sharding import distribute, param_shardings
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, whole)
+    from repro_torch.models import lm_spec
+    from repro_torch.models.convert import params_from_numpy
+    cfg = dataclasses.replace(cfg, act_dtype="float32")
+    params = distribute(params_from_numpy(tree, device=CPU),
+                        param_shardings(lm_spec(cfg), mesh, "serve"))
+    S = tokens.shape[1] - 1
+    pre = make_prefill_step(cfg, use_kernel=kernel, max_len=S + 1,
+                            device=CPU, mesh=mesh)
+    logits, caches = pre(params, {"tokens": torch.from_numpy(tokens[:, :S])})
+    serve = make_serve_step(cfg, device=CPU, mesh=mesh)
+    nxt, caches2 = serve(params, {"tokens": torch.from_numpy(tokens[:, S:]),
+                                  "caches": caches, "pos": S})
+    return dict(logits=whole(logits).numpy(), caches=_numpy_tree(caches),
+                next=whole(nxt).numpy(), caches2=_numpy_tree(caches2))
+
+
+def _serve_jobs(d, mesh):
+    """:func:`_prefill_decode` for each ``(arch, ds)`` of ``d["serve"]`` at
+    ``moe_data_shards`` ``ds``, on the plain path and, for an architecture
+    with global attention layers, on the kernel path;
+    ``{(arch, ds, kernel): result}``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    out = {}
+    for arch, ds in d["serve"]:
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  moe_data_shards=ds)
+        has_global = any(m == "global" for unit, _ in cfg.layout
+                         for m, _ in unit)
+        for kernel in (False, True) if has_global else (False,):
+            out[arch, ds, kernel] = _prefill_decode(
+                d["params"][arch], cfg, d["tokens"], mesh, kernel)
+    return out
+
+
+def _moe_jobs(d, mesh):
+    """Each case ``(arch, ds, capacity_factor)`` of ``d["moe"]``: the
+    port's MoE layer on the mesh (weights by the ``train`` rules, tokens
+    over "data"), its output, ``MoEStats`` and the gradient of
+    ``sum(y * w) + 3 aux`` with respect to the weights and the tokens,
+    whole; and whether the routed experts' and the router's gradients
+    came back in their weights' placements."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (Sharding, distribute,
+                                                  on_mesh, param_shardings)
+    from repro_torch.launch.steps import whole
+    from repro_torch.models.moe import moe, moe_spec
+    out = {}
+    for case, (p, x, w) in d["moe"].items():
+        arch, ds, cf = case
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  act_dtype="float32", moe_data_shards=ds,
+                                  capacity_factor=cf)
+        p = distribute(tree.unflatten(p, [torch.from_numpy(a) for a in
+                                          tree.leaves(p)]),
+                       param_shardings(moe_spec(cfg), mesh, "train"))
+        leaves = [t.detach().requires_grad_(True) for t in tree.leaves(p)]
+        xs = Sharding(mesh, ("data", None, None))
+        xd = xs.place(torch.from_numpy(x)).requires_grad_(True)
+        with on_mesh(mesh):
+            y, st = moe(tree.unflatten(p, leaves), xd, cfg)
+            loss = (y * xs.place(torch.from_numpy(w))).sum() + \
+                3.0 * st.aux_loss
+            grads = torch.autograd.grad(loss, leaves + [xd])
+        gtree = tree.unflatten(p, list(grads[:-1]))
+        out[case] = dict(
+            y=whole(y).detach().numpy(), aux=float(whole(st.aux_loss)),
+            counts=whole(st.expert_counts).numpy(),
+            dropped=int(whole(st.dropped)),
+            grads=[whole(g).numpy() for g in grads],
+            placed=all(gtree[k].placements == p[k].placements
+                       for k in ("router", "wi_gate", "wi_up", "wo")))
+    return out
+
+
+def jobs_rank(rank, path, model_axis):
+    """The jobs of ``tests/torch_mesh_ref.py``'s pickle ``path`` on the
+    port's ``(world // model_axis, model_axis)`` mesh:
+    ``{"train": ..., "serve": ..., "moe": ...}`` (see ``_train_jobs``,
+    ``_serve_jobs``, ``_moe_jobs``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    d = _load(path)
+    mesh = make_host_mesh(model_axis)
+    return {"train": _train_jobs(d, mesh), "serve": _serve_jobs(d, mesh),
+            "moe": _moe_jobs(d, mesh)}
+
+
 def serve_rank(rank, path, model_axis):
     """Tensor-parallel prefill and decode on the reference's weights (f32
     activations), the plain and the kernel path (on the CPU the kernel
@@ -125,31 +244,16 @@ def serve_rank(rank, path, model_axis):
     from repro_torch.kernels.grouped_scatter import segment_sums
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.serve import GroupServer, Request
-    from repro_torch.launch.steps import (make_prefill_step,
-                                          make_serve_step, whole)
     from repro_torch.models import lm_spec
     from repro_torch.models.convert import params_from_numpy
     d = _load(path)
     mesh = make_host_mesh(model_axis)
     out = {}
     for arch, tree in d["params"].items():
-        cfg = dataclasses.replace(get_config(arch, smoke=True),
-                                  act_dtype="float32")
-        params = distribute(params_from_numpy(tree, device=CPU),
-                            param_shardings(lm_spec(cfg), mesh, "serve"))
-        S = d["tokens"].shape[1] - 1
-        pre_tok = torch.from_numpy(d["tokens"][:, :S])
-        dec_tok = torch.from_numpy(d["tokens"][:, S:])
         for kernel in (False, True):
-            pre = make_prefill_step(cfg, use_kernel=kernel, max_len=S + 1,
-                                    device=CPU, mesh=mesh)
-            logits, caches = pre(params, {"tokens": pre_tok})
-            serve = make_serve_step(cfg, device=CPU, mesh=mesh)
-            nxt, caches2 = serve(params, {"tokens": dec_tok,
-                                          "caches": caches, "pos": S})
-            out[arch, kernel] = dict(
-                logits=whole(logits).numpy(), caches=_numpy_tree(caches),
-                next=whole(nxt).numpy(), caches2=_numpy_tree(caches2))
+            out[arch, kernel] = _prefill_decode(
+                tree, get_config(arch, smoke=True), d["tokens"], mesh,
+                kernel)
     # GroupServer on the mesh against one device (f32 activations: bf16
     # logits of the smoke vocabulary tie, and a tie's argmax follows the
     # last bit)

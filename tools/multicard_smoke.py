@@ -24,6 +24,22 @@ ticks, first on card 0 alone and then split over the four cards
            launches per rank) and 8 decode steps fed the one-card run's
            tokens, last-token logits against the one-card run's (2e-4);
            the collective bytes of a prefill
+  moe_serve
+           deepseek-v2-lite-16b at full width (bf16 weights of --seed, f32
+           activations, attn_chunk 1,024): a tensor-parallel prefill of one
+           4,096-token prompt and 8 decode steps fed the one-card run's
+           greedy tokens; every step's last-token logits against the
+           one-card run's (2e-4), each step's argmax equal to the token the
+           one-card run chose, each MoE layer's drops beside one card's;
+           the collective bytes of a prefill, the MoE's expert-parallel
+           all-reduces among them
+  moe_train
+           deepseek-v2-lite-16b at full width cut to its dense layer and
+           MOE_TRAIN_LAYERS MoE layers (what one card holds with f32
+           parameters, grads and two AdamW moments, for the one-card
+           losses), FSDP+TP through make_train_step (B = 8, S = 1,024, bf16
+           activations, remat, make_batch of seed 0) for --steps steps
+           against one card's (2^-9), then one counted step
 
 Each result is a JSON line from rank 0, with the cards' names and power
 limits (nvidia-smi) beside them. ``--phases`` runs a subset of sweep,
@@ -54,7 +70,13 @@ TRAIN_SHAPE = (8, 1_024)
 SERVE_SHAPE = (2, 4_096)
 DECODE_STEPS = 8
 MODEL_AXIS = 2
-PHASES = ("sweep", "train", "serve")
+PHASES = ("sweep", "train", "serve", "moe_serve", "moe_train")
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_SERVE_SEQ = 4_096
+MOE_ATTN_CHUNK = 1_024
+# deepseek-v2-lite-16b's dense layer and this many of its 26 MoE layers
+# train: 2.2 B parameters, 35 GB of f32 parameters, grads and moments
+MOE_TRAIN_LAYERS = 3
 # bars: a bf16 loss within one bf16 rounding (2^-9 relative) of the one-card
 # loss; serving runs in f32 activations, its logits within the models' f32
 # bar (2e-4 of max |logit|): in bf16 each rank rounds its partial sums of a
@@ -96,8 +118,8 @@ def rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-def prompt(cfg, dev, seed: int):
-    B, S = SERVE_SHAPE
+def prompt(cfg, dev, seed: int, shape=SERVE_SHAPE):
+    B, S = shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
 
@@ -193,7 +215,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import distribute, param_shardings
     from repro_torch.launch.mesh import make_host_mesh
@@ -237,6 +259,28 @@ def main() -> int:
         one_ms = [1e3 * r["seconds"] for r in records]
         emit("train", check="one_card", losses=one_losses, ms=one_ms,
              batch=B, seq_len=S, card=smi[:1])
+    moe_cfg = moe_serve_cfg(args.smoke)
+    moe_tokens = prompt(moe_cfg, dev, args.seed,
+                        (1, 64 if args.smoke else MOE_SERVE_SEQ))
+    moe_fed = [torch.zeros(1, dtype=torch.int32, device=dev)
+               for _ in range(DECODE_STEPS)]
+    moe_one = moe_train_one = None
+    if rank == 0 and "moe_serve" in phases:
+        params = init_params(lm_spec(moe_cfg), args.seed,
+                             dtype=torch.bfloat16, device=dev)
+        moe_fed = greedy_tokens(params, moe_cfg, moe_tokens, dev)
+        moe_one = moe_logits(params, moe_cfg, moe_tokens, moe_fed, dev, None)
+        del params
+        sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+    if rank == 0 and "moe_train" in phases:
+        moe_train_one = moe_train_run(moe_train_cfg(args.smoke), args, dev,
+                                      B, S, None)
+        emit("moe_train", check="one_card", losses=moe_train_one[0],
+             ms=moe_train_one[1], batch=B, seq_len=S, card=smi[:1])
+        if cuda:
+            torch.cuda.empty_cache()
     if rank == 0 and "sweep" in phases:
         R = 4_096 if args.smoke else 1_000_000
         horizon = 4_000 if args.smoke else args.sweep_horizon
@@ -301,6 +345,14 @@ def main() -> int:
                 if cuda and any(n != cfg.n_layers for n in all_launches):
                     failures.append(("flash launches per rank",
                                      all_launches))
+        if "moe_serve" in phases:
+            for t in moe_fed:
+                dist.broadcast(t, 0)
+            moe_serve_phase(moe_cfg, mesh, args, dev, moe_tokens, moe_fed,
+                            moe_one, rank, world, smi, failures)
+        if "moe_train" in phases:
+            moe_train_phase(mesh, args, dev, B, S, rank, world, card_name,
+                            smi, moe_train_one, failures)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -371,6 +423,162 @@ def train_phase(cfg, specs, mesh, args, dev, B, S, rank, world, card_name,
               "redistribution plans)")
     if max(rel_loss) > LOSS_TOL:
         failures.append(("FSDP+TP losses", losses, one_losses))
+
+
+def moe_serve_cfg(smoke: bool):
+    """deepseek-v2-lite-16b (its smoke config with --smoke) in f32
+    activations, attn_chunk MOE_ATTN_CHUNK (8 at smoke size)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH, smoke=smoke),
+                               act_dtype="float32",
+                               attn_chunk=8 if smoke else MOE_ATTN_CHUNK)
+
+
+def moe_train_cfg(smoke: bool):
+    """deepseek-v2-lite-16b's dense layer and MOE_TRAIN_LAYERS MoE layers
+    (the smoke config's one with --smoke)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH, smoke=smoke)
+    if smoke:
+        return cfg
+    (dense, _), (moe_unit, _) = cfg.layout
+    return dataclasses.replace(cfg, layout=((dense, 1),
+                                            (moe_unit, MOE_TRAIN_LAYERS)))
+
+
+def moe_logits(params, cfg, tokens, fed, dev, mesh):
+    """:func:`decode_logits` for the MoE model, with each MoE layer's drops
+    of the timed prefill (``chip_smoke.MoEStatsLog``)."""
+    from chip_smoke import MoEStatsLog
+    from repro_torch.launch.steps import whole
+    with MoEStatsLog() as log:
+        out = decode_logits(params, cfg, tokens, fed, dev, mesh)
+    n_moe = sum(r for unit, r in cfg.layout for _, m in unit if "moe" in m)
+    # counted prefill, timed prefill, then one call a decode step
+    drops = [int(whole(st.dropped)) for st in log.stats[n_moe:2 * n_moe]]
+    return (*out, drops)
+
+
+def moe_serve_phase(cfg, mesh, args, dev, tokens, fed, one, rank, world,
+                    smi, failures) -> None:
+    """Tensor-parallel serving of the MoE model against one card."""
+    from repro_torch.distributed.sharding import distribute, param_shardings
+    from repro_torch.models import init_params, lm_spec
+    sp = distribute(init_params(lm_spec(cfg), args.seed,
+                                dtype=torch.bfloat16, device=dev),
+                    param_shardings(lm_spec(cfg), mesh, "serve"))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    outs, _, pcount, prefill_s, decode_ms, drops = moe_logits(
+        sp, cfg, tokens, fed, dev, mesh)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else 0.0)
+    del sp
+    if rank != 0:
+        return
+    errs = [rel(a, b) for a, b in zip(outs, one[0])]
+    chosen = [int(o[0, -1].argmax()) for o in outs[:-1]]
+    want = [int(t[0]) for t in fed]
+    emit("moe_serve", check="tp", arch=cfg.name, mesh=dict(zip(
+        mesh.mesh_dim_names, mesh.shape)), batch=1,
+        seq_len=tokens.shape[1], attn_chunk=cfg.attn_chunk,
+        act_dtype=cfg.act_dtype, weights="bfloat16",
+        decode_steps=DECODE_STEPS, logits_rel_err=errs, tol=LOGIT_TOL,
+        tokens_equal=chosen == want, tokens=want, drops=drops,
+        one_card_drops=one[5], drops_equal=drops == one[5],
+        prefill_s=prefill_s, decode_ms_per_step=decode_ms,
+        one_card_prefill_s=one[3], one_card_decode_ms_per_step=one[4],
+        peak_memory_gib_rank0=peak,
+        prefill_collective_bytes_per_rank=pcount.per_op,
+        prefill_collective_calls_per_rank=pcount.calls, cards=smi,
+        note="drops reported, not a bar: a last-bit change of an f32 "
+             "router probability can move an assignment")
+    if max(errs) > LOGIT_TOL:
+        failures.append(("MoE TP logits", errs))
+    if chosen != want:
+        failures.append(("MoE TP tokens", chosen, want))
+
+
+def moe_train_run(cfg, args, dev, B, S, mesh):
+    """--steps make_train_step steps of ``cfg`` (weights and data of seed
+    0) on one device or on ``mesh``; (losses, ms a step, the last step's
+    collective counter)."""
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, lm_spec
+    from repro_torch.optim import adamw
+    params = init_params(lm_spec(cfg), 0, device=dev)
+    if mesh is not None:
+        params = distribute(params, param_shardings(lm_spec(cfg), mesh,
+                                                    "train"))
+    opt = adamw.init(params)
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        decay_steps=max(args.steps, 2)), device=dev, mesh=mesh)
+    dstate, dc = init_state(), DataConfig(seed=0)
+    losses, ms = [], []
+    counter = CollectiveCounter()
+    for i in range(args.steps + 1):
+        b, dstate = make_batch(dc, cfg, B, S, dstate, device=dev)
+        if mesh is not None:
+            b = distribute(b, batch_shardings(b, mesh))
+        sync(dev)
+        t0 = time.perf_counter()
+        if i == args.steps:              # one more step, counted
+            with counter:
+                params, opt, m = step(params, opt, b)
+        else:
+            params, opt, m = step(params, opt, b)
+        loss = float(m["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+    return losses[:-1], ms[:-1], counter
+
+
+def moe_train_phase(mesh, args, dev, B, S, rank, world, card_name, smi,
+                    one, failures) -> None:
+    """FSDP+TP training of the cut MoE model against one card."""
+    from repro_torch.launch.roofline import card
+    cfg = moe_train_cfg(args.smoke)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, counter = moe_train_run(cfg, args, dev, B, S, mesh)
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else 0.0)
+    if rank != 0:
+        return
+    one_losses, one_ms, _ = one
+    rel_loss = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+    steady = ms[1:] or ms
+    step_ms = sum(steady) / len(steady)
+    one_steady = one_ms[1:] or one_ms
+    one_step_ms = sum(one_steady) / len(one_steady)
+    rows = {f"{world}_cards": roofline_row(cfg, "train", B, S, world,
+                                           counter, card_name, cfg.remat),
+            "1_card": roofline_row(cfg, "train", B, S, 1, None, card_name,
+                                   cfg.remat)}
+    peak_flops = card(card_name).bf16_flops if dev.type == "cuda" else 1.0
+    emit("moe_train", check="fsdp_tp", arch=cfg.name,
+         layers=cfg.n_layers, params=cfg.param_count(),
+         mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)), batch=B,
+         seq_len=S, losses=losses, one_card_losses=one_losses,
+         loss_rel=rel_loss, tol=LOSS_TOL, ms=ms, step_ms=step_ms,
+         tokens_per_s=B * S / step_ms * 1e3, one_card_ms=one_ms,
+         one_card_step_ms=one_step_ms,
+         one_card_tokens_per_s=B * S / one_step_ms * 1e3,
+         peak_memory_gib_rank0=peak,
+         collective_bytes_per_rank=counter.per_op,
+         collective_calls_per_rank=counter.calls, roofline=rows,
+         mfu_measured=rows[f"{world}_cards"]["model_flops"] / world
+         / (step_ms / 1e3) / peak_flops, cards=smi,
+         note="ms of the steps after the first (cold); the collective "
+              "bytes of one more step")
+    if max(rel_loss) > LOSS_TOL:
+        failures.append(("MoE FSDP+TP losses", losses, one_losses))
 
 
 if __name__ == "__main__":
