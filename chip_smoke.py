@@ -964,6 +964,7 @@ def _moe_serve_run(cfg, params, tokens, mesh):
     s, decode ms a step."""
     from repro_torch.launch.steps import (make_prefill_step,
                                           make_serve_step, whole)
+    from repro_torch.models.moe import MoEStatsLog
     B, S = tokens.shape
     torch.cuda.synchronize()
     with MoEStatsLog() as log:
@@ -1886,28 +1887,6 @@ def _arch_cpu_run(arch: str, seed: int) -> dict:
     return _arch_run(arch, seed, "cpu")
 
 
-class MoEStatsLog:
-    """Records the MoEStats of every MoE layer a forward runs (by wrapping
-    the transformer module's ``moe`` while active); read after the run."""
-
-    def __init__(self):
-        self.stats = []
-
-    def __enter__(self):
-        from repro_torch.models import transformer
-        self._mod, self._moe = transformer, transformer.moe
-
-        def moe(*args, **kw):
-            y, st = self._moe(*args, **kw)
-            self.stats.append(st)
-            return y, st
-        transformer.moe = moe
-        return self
-
-    def __exit__(self, *exc):
-        self._mod.moe = self._moe
-
-
 def phase_models(seed: int, cpu_runs: dict) -> dict:
     """deepseek-v2-lite-16b at full width in bf16 (prefill of one 4,096-
     token prompt, chunked against dense, 32 absorbed-MLA decode steps, a
@@ -1923,6 +1902,7 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
     from repro_torch.launch.serve import GroupServer, Request
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import count_params, init_params, lm_spec
+    from repro_torch.models.moe import MoEStatsLog
     t_phase = time.perf_counter()
     cfg = get_config(MODELS_ARCH)
     shape = SHAPES["prefill_32k"]

@@ -436,9 +436,13 @@ def shard_local(fn, args, dims, out_dims):
     must compute each output shard from the same shards of its inputs (the
     rows of a batch, the heads of attention or of an SSM). Autograd runs
     through ``to_local`` and ``from_local``; the gradients of the local
-    inputs are made contiguous. Ops whose sharding rule differs between
-    torch versions run here on plain tensors."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    inputs are made contiguous. An argument kept whole on an axis that
+    splits the outputs (the B and C of SSD over the heads' ranks, its A
+    over the batch's) takes only its rank's share of the gradient there:
+    that gradient is declared ``Partial`` on the axis, so it is summed
+    over the ranks before it reaches a parameter. Ops whose sharding rule
+    differs between torch versions run here on plain tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     placed = [(a, d) for a, d in zip(args, dims) if isinstance(a, DTensor)]
     if not placed:
         return fn(*args)
@@ -457,8 +461,18 @@ def shard_local(fn, args, dims, out_dims):
             Shard(bd) if n in da and split_data and bd is not None else
             Shard(md) if n == "model" and split_model and md is not None
             else Replicate() for n in mesh.mesh_dim_names)
-    local = [_ContiguousGrad.apply(a.redistribute(mesh, pl(*d)).to_local())
-             if isinstance(a, DTensor) else a for a, d in zip(args, dims)]
+    outs = out_dims if isinstance(out_dims[0], tuple) else (out_dims,)
+    split = [any(p.is_shard() for p in ps)
+             for ps in zip(*(pl(*d) for d in outs))]
+
+    def on_rank(a, d):
+        fwd = pl(*d)
+        grad = tuple(Partial() if s and p.is_replicate() else p
+                     for s, p in zip(split, fwd))
+        return _ContiguousGrad.apply(a.redistribute(mesh, fwd).to_local(
+            grad_placements=grad))
+    local = [on_rank(a, d) if isinstance(a, DTensor) else a
+             for a, d in zip(args, dims)]
     out = fn(*local)
     if isinstance(out, tuple):
         return tuple(DTensor.from_local(t, mesh, pl(*d), run_check=False)

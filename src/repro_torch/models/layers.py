@@ -10,7 +10,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..device import is_dtensor
 from .common import spec
 
 
@@ -119,13 +118,11 @@ def unembed_spec(d: int, vocab: int, n_heads: int = 1):
 
 
 def unembed(p, x: torch.Tensor) -> torch.Tensor:
-    """(..., d) -> (..., V), or (..., K, V) with codebook heads (on a mesh
-    one product a head: torch 2.11's DTensor cannot flatten the einsum's
-    sharded operands)."""
+    """(..., d) -> (..., V), or (..., K, V) with codebook heads: one
+    product a head (on a mesh, torch 2.11's DTensor cannot flatten a
+    single einsum's sharded operands)."""
     w = p["w"]
-    if w.dim() == 3 and is_dtensor(x):
+    if w.dim() == 3:
         return torch.stack([x @ w[i].to(x.dtype) for i in range(w.shape[0])],
                            dim=-2)
-    if w.dim() == 3:
-        return torch.einsum("...d,kdv->...kv", x, w.to(x.dtype))
     return x @ w.to(x.dtype)

@@ -311,3 +311,25 @@ def moe_on_mesh(p, x, cfg, cap: int | None = None):
                      expert_counts=whole(cnt.to(torch.int32)),
                      dropped=whole(dropped))
     return y, stats
+
+
+class MoEStatsLog:
+    """Records the MoEStats of every MoE layer a forward runs (by wrapping
+    the transformer block's ``moe`` while active); read after the run."""
+
+    def __init__(self):
+        self.stats = []
+
+    def __enter__(self):
+        from . import transformer
+        self._mod, self._moe = transformer, transformer.moe
+
+        def logged(*args, **kw):
+            y, st = self._moe(*args, **kw)
+            self.stats.append(st)
+            return y, st
+        transformer.moe = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe = self._moe

@@ -10,7 +10,9 @@ reference's ``train(arch, True, 3, 8, 32, None, model_axis=2)`` and in
 f32. Their serving on a mesh is not held here (ROADMAP, what is left of
 execution across devices).
 
-Bars (``tests/torch_mesh_ref.py``): f32 losses 1e-5 relative, bf16 2^-9.
+Bars (``tests/torch_mesh_ref.py``): f32 losses 1e-5 relative, bf16 2^-9;
+every rank's parameters after the steps equal bit for bit; the f32
+first-step gradient 1e-4 of each leaf's max.
 
 Cut for the time limit: three steps.
 """

@@ -12,7 +12,9 @@ the chunks run on each rank's heads. Serving (TP, f32): prefill of a
 ``conv`` by channels) and one decode step.
 
 Bars (``tests/torch_mesh_ref.py``): f32 losses 1e-5 relative, bf16 2^-9;
-logits and states 2e-4; the next token equal.
+logits and states 2e-4; the next token equal; every rank's parameters after
+the steps equal bit for bit; the f32 first-step gradient 1e-4 of each leaf's
+max.
 
 Cut for the time limit: three steps.
 """

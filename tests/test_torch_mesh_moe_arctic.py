@@ -11,7 +11,9 @@ the kernel path (the flash wrapper on each rank's local heads; on the CPU
 its plain version) and one decode step.
 
 Bars (``tests/torch_mesh_ref.py``): f32 losses 1e-5 relative, bf16 2^-9;
-logits and caches 2e-4; the next token equal.
+logits and caches 2e-4; the next token equal; every rank's parameters after
+the steps equal bit for bit; the f32 first-step gradient 1e-4 of each leaf's
+max.
 
 Cut for the time limit: three steps.
 """

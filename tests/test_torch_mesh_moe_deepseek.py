@@ -19,7 +19,9 @@ prompt (MLA's dense path, the latent cache ``ckv`` sharded along the
 sequence over "model", ``krope`` replicated) and one absorbed decode step.
 
 Bars (``tests/torch_mesh_ref.py``): f32 losses 1e-5 relative, bf16 2^-9;
-logits and caches 2e-4; the next token equal.
+logits and caches 2e-4; the next token equal; every rank's parameters after
+the steps equal bit for bit; the f32 first-step gradient 1e-4 of each leaf's
+max.
 
 Cut for the time limit: three steps.
 """

@@ -13,8 +13,10 @@ time) with four forced host devices in the subprocess's own environment
            config's own activations at ``ds = 1`` through
            ``repro.launch.train.train(model_axis=2)`` itself, every other
            case through the same loop with ``act_dtype`` and
-           ``moe_data_shards`` replaced. Returns the losses, and whether the
-           weights made on the mesh are the ones the port was given.
+           ``moe_data_shards`` replaced. Returns the losses, whether the
+           weights made on the mesh are the ones the port was given, and,
+           in f32 activations, ``jax.grad`` of the first batch's loss at
+           those weights on the mesh (``"grads"``).
 ``serve``  ``[(arch, ds)]``: prefill of ``d["tokens"][:, :-1]`` and one
            decode step of the last token, f32 activations, weights placed
            by the ``serve`` rules; the logits, caches and next token.
@@ -50,6 +52,11 @@ F32_TOL = 1e-5
 BF16_TOL = 2.0 ** -9
 SERVE_TOL = 2e-4
 LAYER_TOL = 1e-5
+# the first step's gradient in f32 activations, each leaf within this of
+# its max |value| (the MoE layer's bar, ten times: a whole model's backward
+# adds more reduction orders; a gradient that misses other ranks' shares
+# is off by O(1))
+GRAD_TOL = 1e-4
 
 REF = """
 import dataclasses, pickle, sys
@@ -62,17 +69,24 @@ from repro.distributed.sharding import set_activation_mesh
 from repro.launch.mesh import make_host_mesh
 from repro.launch.steps import make_train_step
 from repro.launch.train import train
-from repro.models import decode_step, init_params, lm_spec, prefill
+from repro.models import decode_step, init_params, lm_spec, loss_fn, prefill
 from repro.models.moe import moe, moe_spec
 from repro.optim import adamw
 with open(sys.argv[1], "rb") as f:
     d = pickle.load(f)
 steps, B, S = d["shape"]
 mesh = make_host_mesh(2)
-out = {"train": {}, "same_weights": {}, "serve": {}, "moe": {}}
+out = {"train": {}, "same_weights": {}, "serve": {}, "moe": {}, "grads": {}}
 for arch, act, ds in d["train"]:
     base = get_config(arch, smoke=True)
     cfg = dataclasses.replace(base, act_dtype=act, moe_data_shards=ds)
+    if act == "float32":
+        with jax.set_mesh(mesh):
+            params = jax.device_put(d["params"][arch], param_shardings(
+                lm_spec(cfg), mesh, "train"))
+            out["grads"][arch, act, ds] = jax.device_get(jax.jit(jax.grad(
+                lambda p, b: loss_fn(p, cfg, b)[0]))(
+                params, d["batches"][arch][0]))
     if cfg == base:
         out["train"][arch, act, ds] = train(arch, True, steps, B, S, None,
                                             model_axis=2, log_every=100)
@@ -223,13 +237,31 @@ def run(tmp, train=(), serve=(), moe=()):
 
 def check_train(runs, job):
     """Every rank's losses of ``job`` equal; rank 0's against the
-    reference's at the job's activation bar."""
+    reference's at the job's activation bar. Every rank's parameters after
+    the steps equal rank 0's, bit for bit (a replicated parameter takes
+    the same update on every rank). In f32 activations, every rank's
+    gradient of the first step against the reference's, leaf by leaf."""
     got, want = runs
-    losses = [rank["train"][job] for rank in got]
+    runs_ = [rank["train"][job] for rank in got]
+    losses = [r["losses"] for r in runs_]
     assert all(g == losses[0] for g in losses)
     assert len(want["train"][job]) == STEPS
     tol = F32_TOL if job[1] == "float32" else BF16_TOL
     np.testing.assert_allclose(losses[0], want["train"][job], rtol=tol)
+    first = jax.tree.leaves(runs_[0]["params"])
+    for r in runs_[1:]:
+        ps = jax.tree.leaves(r["params"])
+        assert len(ps) == len(first)
+        assert all(np.array_equal(a, b) for a, b in zip(ps, first))
+    if job[1] != "float32":
+        return
+    wg = jax.tree.leaves(want["grads"][job])
+    for r in runs_:
+        gs = jax.tree.leaves(r["grads"])
+        assert len(gs) == len(wg)
+        for a, b in zip(gs, wg):
+            assert a.shape == np.shape(b)
+            assert rel(a, b) < GRAD_TOL
 
 
 def check_serve(runs, key):

@@ -53,28 +53,53 @@ def _load(path):
 
 # --------------------------------------------------------------- training
 
-def _sharded_losses(tree, batches, cfg, opt_kw, mesh):
-    """The port's sharded ``make_train_step`` from the reference's weights
-    (numpy, stacked) over its batches (numpy); the losses."""
-    from repro_torch.distributed.sharding import (batch_shardings,
-                                                  distribute,
+def _place(tree, shardings, mesh):
+    """``tree`` placed by ``shardings(mesh)`` on a mesh; as it is on one
+    device (``mesh`` None)."""
+    from repro_torch.distributed.sharding import distribute
+    return tree if mesh is None else distribute(tree, shardings(mesh))
+
+
+def _host_tree(tree):
+    """A port parameter tree (DTensors whole) in the reference's stacked
+    layout, numpy leaves."""
+    from repro_torch import tree as tr
+    from repro_torch.launch.steps import whole
+    from repro_torch.models.convert import params_to_numpy
+    return params_to_numpy(tr.unflatten(tree, [whole(t) for t in
+                                               tr.leaves(tree)]))
+
+
+def _sharded_train(tree, batches, cfg, opt_kw, mesh, grads=False):
+    """The port's ``make_train_step`` on ``mesh`` (None: one device) from
+    the reference's weights (numpy, stacked) over its batches (numpy):
+    ``{"losses", "params"}`` (the parameters after the steps, whole, in the
+    reference's layout) and, with ``grads``, ``"grads"``: the gradient of
+    the first batch's loss at the given weights, whole, alike."""
+    from repro_torch.distributed.sharding import (batch_shardings, on_mesh,
                                                   param_shardings)
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.steps import make_train_step, value_and_grad
     from repro_torch.models import lm_spec
     from repro_torch.models.convert import _tensor, params_from_numpy
     from repro_torch.optim import adamw
-    params = distribute(params_from_numpy(tree, device=CPU),
-                        param_shardings(lm_spec(cfg), mesh, "train"))
+    params = _place(params_from_numpy(tree, device=CPU),
+                    lambda m: param_shardings(lm_spec(cfg), m, "train"), mesh)
     opt = adamw.init(params)
     step = make_train_step(cfg, adamw.AdamWConfig(**opt_kw), device=CPU,
                            mesh=mesh)
-    losses = []
-    for b in batches:
+    out = {"losses": []}
+    for i, b in enumerate(batches):
         b = {k: _tensor(v, CPU) for k, v in b.items()}      # bf16 embeds
-        b = distribute(b, batch_shardings(b, mesh, {"positions3": 1}))
+        b = _place(b, lambda m: batch_shardings(b, m, {"positions3": 1}),
+                   mesh)
+        if grads and i == 0:
+            with on_mesh(mesh):
+                g = value_and_grad(params, cfg, b, device=CPU)[2]
+                out["grads"] = _host_tree(g)
         params, opt, m = step(params, opt, b)
-        losses.append(float(m["loss"]))
-    return losses
+        out["losses"].append(float(m["loss"]))
+    out["params"] = _host_tree(params)
+    return out
 
 
 def train_rank(rank, path, model_axis):
@@ -86,16 +111,18 @@ def train_rank(rank, path, model_axis):
     from repro_torch.launch.mesh import make_host_mesh
     d = _load(path)
     mesh = make_host_mesh(model_axis)
-    return {act: _sharded_losses(
+    return {act: _sharded_train(
         d["params"], d["batches"], dataclasses.replace(
             get_config("qwen2-0.5b", smoke=True), act_dtype=act), d["opt"],
-        mesh) for act in ("bfloat16", "float32")}
+        mesh)["losses"] for act in ("bfloat16", "float32")}
 
 
 def _train_jobs(d, mesh):
-    """Each ``(arch, act, ds)`` of ``d["train"]`` through the port's sharded
-    ``make_train_step``, activations ``act`` and ``moe_data_shards``
-    ``ds``, on the reference's weights and batches; ``{job: losses}``."""
+    """Each ``(arch, act, ds)`` of ``d["train"]`` through the port's
+    ``make_train_step`` on ``mesh`` (None: one device), activations ``act``
+    and ``moe_data_shards`` ``ds``, on the weights and batches of ``d``;
+    ``{job: _sharded_train's result}``, with the first step's gradient in
+    f32 activations."""
     import dataclasses
     from repro_torch.configs import get_config
     out = {}
@@ -103,9 +130,10 @@ def _train_jobs(d, mesh):
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   act_dtype=act, moe_data_shards=ds)
         batches = d["batches"][arch]
-        out[arch, act, ds] = _sharded_losses(
+        out[arch, act, ds] = _sharded_train(
             d["params"][arch], batches, cfg,
-            {"decay_steps": max(len(batches), 2)}, mesh)
+            {"decay_steps": max(len(batches), 2)}, mesh,
+            grads=act == "float32")
     return out
 
 
@@ -135,17 +163,19 @@ def _numpy_tree(tree):
 def _prefill_decode(tree, cfg, tokens, mesh, kernel: bool):
     """Tensor-parallel prefill of ``tokens[:, :-1]`` and one decode step of
     the last token (f32 activations, the reference's weights ``tree``
-    placed by the ``serve`` rules; ``kernel``: the flash wrapper's path);
-    the whole logits, caches and next token, numpy."""
+    placed by the ``serve`` rules, or on one device with ``mesh`` None;
+    ``kernel``: the flash wrapper's path); the whole logits, caches and
+    next token, numpy."""
     import dataclasses
-    from repro_torch.distributed.sharding import distribute, param_shardings
+    from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.steps import (make_prefill_step,
                                           make_serve_step, whole)
     from repro_torch.models import lm_spec
     from repro_torch.models.convert import params_from_numpy
     cfg = dataclasses.replace(cfg, act_dtype="float32")
-    params = distribute(params_from_numpy(tree, device=CPU),
-                        param_shardings(lm_spec(cfg), mesh, "serve"))
+    params = _place(params_from_numpy(tree, device=CPU),
+                    lambda m: param_shardings(lm_spec(cfg), m, "serve"),
+                    mesh)
     S = tokens.shape[1] - 1
     pre = make_prefill_step(cfg, use_kernel=kernel, max_len=S + 1,
                             device=CPU, mesh=mesh)
@@ -176,18 +206,18 @@ def _serve_jobs(d, mesh):
     return out
 
 
-def _moe_jobs(d, mesh):
+def _moe_jobs(d, mesh, rules="train"):
     """Each case ``(arch, ds, capacity_factor)`` of ``d["moe"]``: the
-    port's MoE layer on the mesh (weights by the ``train`` rules, tokens
-    over "data"), its output, ``MoEStats`` and the gradient of
-    ``sum(y * w) + 3 aux`` with respect to the weights and the tokens,
-    whole; and whether the routed experts' and the router's gradients
-    came back in their weights' placements."""
+    port's MoE layer on the mesh (weights by the ``rules``, tokens over
+    "data"; ``mesh`` None: one device), its output, ``MoEStats`` and the
+    gradient of ``sum(y * w) + 3 aux`` with respect to the weights and the
+    tokens, whole; and whether the routed experts' and the router's
+    gradients came back in their weights' placements."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import (Sharding, distribute,
-                                                  on_mesh, param_shardings)
+    from repro_torch.distributed.sharding import (Sharding, on_mesh,
+                                                  param_shardings)
     from repro_torch.launch.steps import whole
     from repro_torch.models.moe import moe, moe_spec
     out = {}
@@ -196,38 +226,45 @@ def _moe_jobs(d, mesh):
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   act_dtype="float32", moe_data_shards=ds,
                                   capacity_factor=cf)
-        p = distribute(tree.unflatten(p, [torch.from_numpy(a) for a in
-                                          tree.leaves(p)]),
-                       param_shardings(moe_spec(cfg), mesh, "train"))
+        p = _place(tree.unflatten(p, [torch.from_numpy(a) for a in
+                                      tree.leaves(p)]),
+                   lambda m: param_shardings(moe_spec(cfg), m, rules), mesh)
         leaves = [t.detach().requires_grad_(True) for t in tree.leaves(p)]
-        xs = Sharding(mesh, ("data", None, None))
-        xd = xs.place(torch.from_numpy(x)).requires_grad_(True)
+        x, w = torch.from_numpy(x), torch.from_numpy(w)
+        if mesh is not None:
+            xs = Sharding(mesh, ("data", None, None))
+            x, w = xs.place(x), xs.place(w)
+        x.requires_grad_(True)
         with on_mesh(mesh):
-            y, st = moe(tree.unflatten(p, leaves), xd, cfg)
-            loss = (y * xs.place(torch.from_numpy(w))).sum() + \
-                3.0 * st.aux_loss
-            grads = torch.autograd.grad(loss, leaves + [xd])
+            y, st = moe(tree.unflatten(p, leaves), x, cfg)
+            loss = (y * w).sum() + 3.0 * st.aux_loss
+            grads = torch.autograd.grad(loss, leaves + [x])
         gtree = tree.unflatten(p, list(grads[:-1]))
         out[case] = dict(
             y=whole(y).detach().numpy(), aux=float(whole(st.aux_loss)),
             counts=whole(st.expert_counts).numpy(),
             dropped=int(whole(st.dropped)),
             grads=[whole(g).numpy() for g in grads],
-            placed=all(gtree[k].placements == p[k].placements
-                       for k in ("router", "wi_gate", "wi_up", "wo")))
+            placed=mesh is None or all(
+                gtree[k].placements == p[k].placements
+                for k in ("router", "wi_gate", "wi_up", "wo")))
     return out
 
 
-def jobs_rank(rank, path, model_axis):
+def jobs_rank(rank, path, model_axis, moe_rules="train"):
     """The jobs of ``tests/torch_mesh_ref.py``'s pickle ``path`` on the
     port's ``(world // model_axis, model_axis)`` mesh:
     ``{"train": ..., "serve": ..., "moe": ...}`` (see ``_train_jobs``,
     ``_serve_jobs``, ``_moe_jobs``)."""
     from repro_torch.launch.mesh import make_host_mesh
-    d = _load(path)
-    mesh = make_host_mesh(model_axis)
+    return run_jobs(_load(path), make_host_mesh(model_axis), moe_rules)
+
+
+def run_jobs(d, mesh, moe_rules="train"):
+    """The jobs of ``d`` on ``mesh`` (None: one device), the MoE layer's
+    weights placed by ``moe_rules``."""
     return {"train": _train_jobs(d, mesh), "serve": _serve_jobs(d, mesh),
-            "moe": _moe_jobs(d, mesh)}
+            "moe": _moe_jobs(d, mesh, moe_rules)}
 
 
 def serve_rank(rank, path, model_axis):

@@ -5,151 +5,135 @@ rules differ by version).
 
     PYTHONPATH=src:tests python tools/mesh_rehearsal.py [ARCH ...]
 
-On the CPU, four spawned gloo ranks (``tests/torch_mesh_worker.run_ranks``)
-and a (2, 2) mesh: for each architecture (default: every family) at its
-smoke config in f32 activations, 2 FSDP+TP train steps and a TP prefill of
-2 x 16 tokens + 1 decode step against the same rank's one-device run; with
-no ARCH, first the MoE layer's output, stats and gradients at capacity
-factor 0.5 (``moe_data_shards`` 1 and 2, train and serve placements). One
-JSON line a case; a raised error is printed in the line, not raised.
+Runs the CPU tests' jobs (``tests/torch_mesh_worker.run_jobs``) on weights
+and batches the port makes itself, on a (2, 2) mesh of four spawned gloo
+ranks against the same jobs on one device: for each architecture (default:
+every family) at its smoke config in f32 activations, three FSDP+TP train
+steps (losses, the first step's gradients, every rank's parameters after
+the steps) and, for token models, a TP prefill of 2 x 16 tokens + 1 decode
+step; with no ARCH, first the MoE layer's output, stats and gradients at
+capacity factor 0.5 (``moe_data_shards`` 1 and 2, ``train`` and ``serve``
+placements). One JSON line a case; a raised error is printed in the line,
+not raised.
 """
-import dataclasses
 import json
 import os
+import pickle
 import sys
+import tempfile
 import time
 import traceback
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
-from torch_mesh_worker import run_ranks  # noqa: E402
+from torch_mesh_worker import jobs_rank, run_jobs, run_ranks  # noqa: E402
 
 ARCHS = ("deepseek-v2-lite-16b", "arctic-480b", "mamba2-1.3b",
          "recurrentgemma-2b", "gemma3-12b", "qwen2-vl-2b", "musicgen-medium")
+MOE_ARCHS = ("deepseek-v2-lite-16b", "arctic-480b")
+STEPS, B, S = 3, 8, 32
 
 
-def arch_rank(rank, arch, ds):
-    """One rank of an architecture's case: ``{"train": {on mesh: losses},
-    "serve": (logits rel err, next tokens equal)}``, or the traceback."""
-    import torch
+def jobs(arch=None, ds=1):
+    """The jobs of one case: an architecture's (weights of ``init_params``
+    at seed 0, ``make_batch``'s batches of ``DataConfig(seed=0)``), or
+    with ``arch`` None the MoE layer's at ``moe_data_shards`` ``ds``."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, init_state, make_batch
-    from repro_torch.distributed.sharding import (batch_shardings, distribute,
-                                                  param_shardings)
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                          make_train_step, whole)
     from repro_torch.models import init_params, lm_spec
-    from repro_torch.optim import adamw
+    from repro_torch.models.convert import _host, params_to_numpy
+    from repro_torch.models.moe import moe_spec
+    d = {"train": [], "serve": [], "moe": {}, "params": {}, "batches": {},
+         "tokens": np.random.default_rng(3).integers(
+             0, 256, (2, 17)).astype(np.int32)}
+    if arch is None:
+        for a in MOE_ARCHS:
+            cfg = get_config(a, smoke=True)
+            rng = np.random.default_rng(1)
+            x, w = (rng.normal(size=(4, 32, cfg.d_model)).astype(np.float32)
+                    for _ in range(2))
+            d["moe"][a, ds, 0.5] = (params_to_numpy(
+                init_params(moe_spec(cfg), 0, device="cpu")), x, w)
+        return d
+    cfg = get_config(arch, smoke=True)
+    d["params"][arch] = params_to_numpy(init_params(lm_spec(cfg), 0,
+                                                    device="cpu"))
+    dstate, batches = init_state(), []
+    for _ in range(STEPS):
+        b, dstate = make_batch(DataConfig(seed=0), cfg, B, S, dstate,
+                               device="cpu")
+        batches.append({k: _host(v) for k, v in b.items()})
+    d["batches"][arch] = batches
+    d["train"] = [(arch, "float32", ds)]
+    if cfg.embed_inputs:
+        d["serve"] = [(arch, ds)]
+    return d
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    b = np.asarray(b, np.float32)
+    return float(np.abs(np.asarray(a, np.float32) - b).max()
+                 / (np.abs(b).max() + 1e-12))
+
+
+def compare(got, one):
+    """Rank 0's results against one device's, and every rank's parameters
+    after training against rank 0's."""
+    from repro_torch.tree import leaves
     out = {}
-    cfg = dataclasses.replace(get_config(arch, smoke=True),
-                              act_dtype="float32", moe_data_shards=ds)
-    p = init_params(lm_spec(cfg), 0, device="cpu")
-    mesh = make_host_mesh(2)
-    try:
-        losses = {}
-        for m in (None, mesh):
-            pp = p if m is None else distribute(
-                p, param_shardings(lm_spec(cfg), m, "train"))
-            opt = adamw.init(pp)
-            step = make_train_step(cfg, adamw.AdamWConfig(decay_steps=2),
-                                   device="cpu", mesh=m)
-            dstate, ls = init_state(), []
-            for _ in range(2):
-                b, dstate = make_batch(DataConfig(seed=0), cfg, 8, 32, dstate,
-                                       device="cpu")
-                if m is not None:
-                    b = distribute(b, batch_shardings(b, m, {"positions3": 1}))
-                pp, opt, met = step(pp, opt, b)
-                ls.append(float(met["loss"]))
-            losses[m is not None] = ls
-        out["train"] = losses
-    except Exception:
-        out["train_error"] = traceback.format_exc()[-2500:]
-    if not cfg.embed_inputs:
-        return out
-    try:
-        tok = torch.randint(0, 256, (2, 17),
-                            generator=torch.Generator().manual_seed(0))
-        res = []
-        for m in (None, mesh):
-            pp = p if m is None else distribute(
-                p, param_shardings(lm_spec(cfg), m, "serve"))
-            lg, c = make_prefill_step(cfg, max_len=17, device="cpu",
-                                      mesh=m)(pp, {"tokens": tok[:, :16]})
-            nx, c2 = make_serve_step(cfg, device="cpu", mesh=m)(
-                pp, {"tokens": tok[:, 16:], "caches": c, "pos": 16})
-            res.append((whole(lg), whole(nx)))
-        (a, an), (b, bn) = res
-        out["serve"] = (float((a - b).abs().max() / a.abs().max()),
-                        bool(torch.equal(an, bn)))
-    except Exception:
-        out["serve_error"] = traceback.format_exc()[-2500:]
+    for job, r in got[0]["train"].items():
+        o = one["train"][job]
+        out["train"] = dict(
+            losses=(r["losses"], o["losses"]),
+            grad_rel=max(rel(a, b) for a, b in zip(leaves(r["grads"]),
+                                                   leaves(o["grads"]))),
+            params_same_on_ranks=all(
+                all(np.array_equal(a, b) for a, b in zip(
+                    leaves(g["train"][job]["params"]), leaves(r["params"])))
+                for g in got))
+    for key, r in got[0]["serve"].items():
+        o = one["serve"][key]
+        out[f"serve kernel={key[2]}"] = dict(
+            logits_rel=rel(r["logits"], o["logits"]),
+            next_equal=bool(np.array_equal(r["next"], o["next"])))
+    for case, r in got[0]["moe"].items():
+        o = one["moe"][case]
+        out[str(case[:2])] = dict(
+            y_rel=rel(r["y"], o["y"]),
+            counts_equal=bool(np.array_equal(r["counts"], o["counts"])),
+            dropped=(r["dropped"], o["dropped"]),
+            grad_rel=max(rel(a, b) for a, b in zip(r["grads"], o["grads"])),
+            placed=r["placed"])
     return out
 
 
-def moe_rank(rank, arch, ds, mode):
-    """One rank of the MoE layer's case (``mode``: the placement rules):
-    output and gradient errors against one device, counts and drops."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.sharding import (Sharding, distribute,
-                                                  on_mesh, param_shardings)
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import init_params
-    from repro_torch.models.moe import moe, moe_spec
+def rehearse(tmp, name, d, moe_rules="train"):
+    t0 = time.time()
+    line = {"case": name}
     try:
-        cfg = dataclasses.replace(get_config(arch, smoke=True),
-                                  act_dtype="float32", moe_data_shards=ds,
-                                  capacity_factor=0.5)
-        spec = {"moe": moe_spec(cfg)}
-        p = init_params(spec, 0, device="cpu")
-        g = torch.Generator().manual_seed(1)
-        x = torch.randn((4, 32, cfg.d_model), generator=g)
-        w = torch.randn((4, 32, cfg.d_model), generator=g)
-        leaves = [t.detach().requires_grad_(True) for t in tree.leaves(p)]
-        xx = x.clone().requires_grad_(True)
-        y1, st1 = moe(tree.unflatten(p, leaves)["moe"], xx, cfg)
-        g1 = torch.autograd.grad((y1 * w).sum() + 3.0 * st1.aux_loss,
-                                 leaves + [xx])
-        mesh = make_host_mesh(2)
-        pd = distribute(p, param_shardings(spec, mesh, mode))
-        dl = [t.detach().requires_grad_(True) for t in tree.leaves(pd)]
-        xs = Sharding(mesh, ("data", None, None))
-        xd = xs.place(x).detach().requires_grad_(True)
-        with on_mesh(mesh):
-            y2, st2 = moe(tree.unflatten(pd, dl)["moe"], xd, cfg)
-            g2 = torch.autograd.grad(
-                (y2 * xs.place(w)).sum() + 3.0 * st2.aux_loss, dl + [xd])
-        return {"y": float((y2.full_tensor() - y1).detach().abs().max()),
-                "counts_equal": bool(torch.equal(
-                    st2.expert_counts.full_tensor(), st1.expert_counts)),
-                "dropped": (int(st2.dropped.full_tensor()), int(st1.dropped)),
-                "grad_rel": max(float((a.full_tensor() - b).abs().max()
-                                      / (b.abs().max() + 1e-12))
-                                for a, b in zip(g2, g1))}
+        path = os.path.join(tmp, "in.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(d, f)
+        got = run_ranks(jobs_rank, 4, path, 2, moe_rules)
+        line.update(compare(got, run_jobs(d, None, moe_rules)))
     except Exception:
-        return traceback.format_exc()[-2500:]
+        line["error"] = traceback.format_exc()[-2500:]
+    line["s"] = time.time() - t0
+    print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":
     import torch
     print("torch", torch.__version__, flush=True)
-    archs = sys.argv[1:] or ARCHS
-    if not sys.argv[1:]:
-        for arch in ("deepseek-v2-lite-16b", "arctic-480b"):
+    with tempfile.TemporaryDirectory() as tmp:
+        if not sys.argv[1:]:
             for ds in (1, 2):
-                for mode in ("train", "serve"):
-                    t0 = time.time()
-                    r = run_ranks(moe_rank, 4, arch, ds, mode)
-                    print(json.dumps({"moe": arch, "ds": ds, "mode": mode,
-                                      "rank0": r[0], "s": time.time() - t0}),
-                          flush=True)
-    for arch in archs:
-        for ds in ((1, 2) if arch == "deepseek-v2-lite-16b" else (1,)):
-            t0 = time.time()
-            r = run_ranks(arch_rank, 4, arch, ds)
-            print(json.dumps({"arch": arch, "ds": ds, "rank0": r[0],
-                              "same_on_ranks": all(x == r[0] for x in r),
-                              "s": time.time() - t0}), flush=True)
+                for rules in ("train", "serve"):
+                    rehearse(tmp, f"moe ds={ds} {rules}", jobs(None, ds),
+                             rules)
+        for arch in sys.argv[1:] or ARCHS:
+            for ds in (1, 2) if arch == "deepseek-v2-lite-16b" else (1,):
+                rehearse(tmp, f"{arch} ds={ds}", jobs(arch, ds))

@@ -215,7 +215,7 @@ def main() -> int:
     args = ap.parse_args()
     phases = set(args.phases.split(","))
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import distribute, param_shardings
     from repro_torch.launch.mesh import make_host_mesh
@@ -448,9 +448,9 @@ def moe_train_cfg(smoke: bool):
 
 def moe_logits(params, cfg, tokens, fed, dev, mesh):
     """:func:`decode_logits` for the MoE model, with each MoE layer's drops
-    of the timed prefill (``chip_smoke.MoEStatsLog``)."""
-    from chip_smoke import MoEStatsLog
+    of the timed prefill."""
     from repro_torch.launch.steps import whole
+    from repro_torch.models.moe import MoEStatsLog
     with MoEStatsLog() as log:
         out = decode_logits(params, cfg, tokens, fed, dev, mesh)
     n_moe = sum(r for unit, r in cfg.layout for _, m in unit if "moe" in m)
