@@ -12,7 +12,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     together); ptxas's registers and spills of every
                     kernel instance (among them the wgmma bf16 flash kernel
                     at D = 64, 128, 240 and the tf32x3 f32 one at D = 16,
-                    32, 64, 128)
+                    32, 64, 128, 240)
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -223,18 +223,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), with both bounds
                     (3xTF32 on the tensor cores, f32 on the CUDA cores) and
                     ptxas's registers and spills of its D = 64 instance (no
-                    spill allowed). The f32 routes at the other head dims,
-                    at gemma3-12b's global shape (B=1, S=8,192, H=16, K=8):
-                    fma at D = 240 and tf32x3 at D = 16, 32 and 128, each
-                    against the plain version (1e-5), timed beside SDPA in
-                    f32, with the byte, CUDA-core
-                    and (tf32x3) 3xTF32 bounds. gemma3-12b at full width (d 3840,
+                    spill allowed). The other head dims at gemma3-12b's
+                    global shape (B=1, S=8,192, H=16, K=8): f32 on tf32x3
+                    at D = 240, 16, 32 and 128, and bf16 on fma at D = 16
+                    and 32, each against the plain version (1e-5), timed
+                    beside SDPA in its dtype, with the byte, CUDA-core and
+                    (tf32x3) 3xTF32 bounds; at f32 D = 240 the FMA kernel
+                    (the route before it) timed beside them on the same
+                    inputs and ptxas's report of the D = 240 instance (no
+                    spill allowed). gemma3-12b at full width (d 3840,
                     16/8 heads of 240, vocab 262,144; bf16 weights from
                     --seed) cut to one unit of its layout (5 local + 1
                     global, of 48 layers): one bf16 prefill of 4,096 tokens
                     on the kernel path (one wgmma launch, counted from 0),
-                    the plain path and the f32 kernel path (the FMA kernel
-                    at D = 240), held to the bars
+                    the plain path and the f32 kernel path (one tf32x3
+                    launch at D = 240, counted from 0), held to the bars
                     of qwen2's bf16 path check. gemma3-12b's global-layer
                     shape (B=1, S=8,192, H=16, K=8, D=240, bf16, causal) on
                     the wgmma kernel's D = 240 instance against the plain
@@ -2480,59 +2483,99 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
     return row
 
 
-# the f32 routes at the other head dims, at gemma3-12b's global-layer shape
-# (B=1, S=8,192, H=16, K=8): fma at D = 240, tf32x3 at D = 16, 32 and 128
-F32_OTHER_DIMS = (240, 16, 32, 128)
+# the routes at the other head dims, at gemma3-12b's global-layer shape
+# (B=1, S=8,192, H=16, K=8): f32 on tf32x3 at D = 240, 16, 32 and 128; bf16
+# on fma at D = 16 and 32 (the wgmma kernel has no instance there)
+OTHER_DIMS = ((torch.float32, 240), (torch.float32, 16), (torch.float32, 32),
+              (torch.float32, 128), (torch.bfloat16, 16),
+              (torch.bfloat16, 32))
 
 
-def flash_f32_other_dims(gen, rates) -> list:
-    """The f32 flash routes at the head dims the main path's shape does not
-    take (``F32_OTHER_DIMS``): each checked against the plain version
-    (SAME_INPUTS_TOL), then kernel and SDPA in f32 timed in turns (kernel,
-    SDPA, SDPA, kernel), with the byte bound,
-    the CUDA-core f32 bound and, on tf32x3, the 3xTF32 bound. Returns the
-    rows."""
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention, route)
+def flash_other_dims(gen, rates, ptxas: list) -> list:
+    """The flash routes at the head dims the main path's shape does not
+    take (``OTHER_DIMS``): each checked against the plain version
+    (SAME_INPUTS_TOL), then kernel and SDPA in the same dtype timed in
+    turns (kernel, SDPA, SDPA, kernel; at f32 D = 240 the FMA kernel, the
+    route before tf32x3, on the same inputs beside them: kernel, FMA, SDPA,
+    SDPA, FMA, kernel, as ``earlier_ms``), the plain version once, with the
+    byte bound, the
+    CUDA-core f32 bound and the tensor-core bound of the dtype (3xTF32 on
+    tf32x3, bf16 on the bf16 inputs of fma); ptxas's report of the tf32x3
+    D = 240 instance (no spill allowed). Returns the rows."""
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention, kernel, kernel_tf32, route)
     B, S, H, K = 1, 8_192, 16, 8
-    bw, f32_peak, _, tf32_peak = rates
+    bw, f32_peak, bf16_peak, tf32_peak = rates
     rows = []
-    for D in F32_OTHER_DIMS:
-        q = _rand(gen, (B, S, H, D), torch.float32)
-        k, v = (_rand(gen, (B, S, K, D), torch.float32) for _ in range(2))
+    for dt, D in OTHER_DIMS:
+        q = _rand(gen, (B, S, H, D), dt)
+        k, v = (_rand(gen, (B, S, K, D), dt) for _ in range(2))
         rt = route(q, k, v)
-        err = float((flash_attention(q, k, v)
-                     - bf16_chunked(q, k, v, attention_ref)).abs().max())
-        assert err <= SAME_INPUTS_TOL, ("f32 route", D, rt, err)
+        want = bf16_chunked(q, k, v, attention_ref)
+        err = float((flash_attention(q, k, v) - want).abs().max())
+        assert err <= SAME_INPUTS_TOL, ("flash route", dt, D, rt, err)
+        out = torch.empty((B, S, H, D), device="cuda")
 
         def kernel_run():
             return flash_attention(q, k, v)
-        library_run, library_call = sdpa_library_run(q, k, v, gqa=False)
-        turns = [(fn, cuda_ms(fn, reps=5)) for fn in
-                 (kernel_run, library_run, library_run, kernel_run)]
-        kernel_runs = [t for fn, t in turns if fn is kernel_run]
-        library_runs = [t for fn, t in turns if fn is library_run]
+
+        def fma_run():
+            kernel.launch(q, k, v, out, True, D ** -0.5)
+            return out
+        earlier = dt == torch.float32 and D == 240
+        row = {"kernel_route": rt, "dtype": str(dt), "D": D,
+               "shape": [B, S, S, H, K, D], "max_abs_err": err,
+               "tol": SAME_INPUTS_TOL}
+        if earlier:
+            row["earlier_max_abs_err"] = float(
+                (fma_run() - want).abs().max())
+            assert row["earlier_max_abs_err"] <= SAME_INPUTS_TOL, row
+        del want
+        library_run, library_call = sdpa_library_run(
+            q, k, v, gqa=dt != torch.float32)
+        fns = (kernel_run, fma_run, library_run) if earlier else (
+            kernel_run, library_run)
+        turns = [(fn, cuda_ms(fn, reps=5)) for fn in fns + fns[::-1]]
+        kernel_runs, fma_runs, library_runs = (
+            [t for f, t in turns if f is fn]
+            for fn in (kernel_run, fma_run, library_run))
+        plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref),
+                           reps=2)
         flops = 4 * H * D * B * S * (S + 1) // 2
-        nbytes = (B * S * H * D + 2 * B * S * K * D) * 4 + B * S * H * D * 4
+        nbytes = ((B * S * H * D + 2 * B * S * K * D) * q.element_size()
+                  + B * S * H * D * 4)
         bounds = {"bytes": nbytes / bw * 1e3,
                   "f32_cores": flops / f32_peak * 1e3}
         if rt == "tf32x3":
             bounds["tf32x3"] = 3 * flops / tf32_peak * 1e3
-        ops = bounds.get("tf32x3", bounds["f32_cores"])
-        row = {"kernel_route": rt, "D": D, "shape": [B, S, S, H, K, D],
-               "max_abs_err": err, "tol": SAME_INPUTS_TOL,
-               "ms": sum(kernel_runs) / len(kernel_runs),
-               "kernel_ms_runs": kernel_runs,
-               "bound_ms": max(bounds["bytes"], ops),
-               "bound_by": "bytes" if bounds["bytes"] >= ops
-               else "operations", "bounds_ms": bounds,
-               "library_ms": sum(library_runs) / 2,
-               "library_ms_runs": library_runs,
-               "library_call": library_call + " on f32 inputs",
-               "card": gpu_query("name", "clocks.sm", "power.limit")}
-        emit("flash", check="f32_other_dims", **row)
+        else:
+            bounds["bf16"] = flops / bf16_peak * 1e3
+        ops = bounds.get("tf32x3", bounds.get("bf16"))
+        row.update({"ms": sum(kernel_runs) / len(kernel_runs),
+                    "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
+                    "bound_ms": max(bounds["bytes"], ops),
+                    "bound_by": "bytes" if bounds["bytes"] >= ops
+                    else "operations", "bounds_ms": bounds,
+                    "library_ms": sum(library_runs) / 2,
+                    "library_ms_runs": library_runs,
+                    "library_call": library_call + f" on {dt} inputs",
+                    "card": gpu_query("name", "clocks.sm", "power.limit")})
+        if earlier:
+            inst = kernel_tf32.instance_name(D)
+            regs = [u for u in ptxas if inst in u["kernel"]]
+            assert len(regs) == 1, ("ptxas report of the tf32x3 D = 240 "
+                                    "instance", inst)
+            emit("flash", check="ptxas_tf32_d240", **regs[0])
+            assert regs[0]["spill_store_bytes"] == 0, (
+                "tf32x3 D = 240 spills", regs[0])
+            row.update({"earlier_ms": sum(fma_runs) / 2,
+                        "earlier_ms_runs": fma_runs,
+                        "earlier_source": "src/repro_torch/kernels/"
+                        "flash_attention/csrc/flash_attention.cu (f32 FMA)",
+                        "ptxas": regs[0]})
+        emit("flash", check="other_dims", **row)
         rows.append(row)
-        del q, k, v
+        del q, k, v, out
     return rows
 
 
@@ -2541,15 +2584,16 @@ def flash_f32_other_dims(gen, rates) -> list:
 GEMMA3_SEQ = 4_096
 
 
-def gemma3_path(seed: int) -> int:
+def gemma3_path(seed: int) -> tuple[dict, dict]:
     """gemma3-12b's serving path at full width (d 3840, 16/8 heads of 240,
     d_ff 15,360, vocab 262,144) with bf16 weights from ``seed``, cut to one
     unit of its layout (5 local + 1 global): one bf16 prefill of 4,096
     tokens on the kernel path (the global layer's attention on the wgmma
     kernel, one launch: the counts are zeroed right before and read right
     after), on the plain path, and on the kernel path with f32 activations
-    (the FMA kernel), held to qwen2's ``path_bf16`` bars. Returns the
-    wgmma launches of the bf16 kernel-path prefill."""
+    (the tf32x3 kernel's D = 240 instance, one launch, counted the same
+    way), held to qwen2's ``path_bf16`` bars. Returns the launches by route
+    of the bf16 and of the f32 kernel-path prefill."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import ROUTES
@@ -2581,8 +2625,15 @@ def gemma3_path(seed: int) -> int:
         by_route)
     lp, _ = prefill(params, cfg, tokens=toks, use_kernel=False)
     cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    torch.cuda.synchronize()
     lf, _ = prefill(params, cfg32, tokens=toks, use_kernel=True)
-    assert flash_attention.launches_by_route["fma"] == 1    # f32 at D = 240
+    torch.cuda.synchronize()
+    by_route_f32 = dict(flash_attention.launches_by_route)
+    emit("gemma3_path", f32_launches_by_route=by_route_f32)
+    assert by_route_f32 == {**dict.fromkeys(ROUTES, 0), "tf32x3": 1}, (
+        "an f32 gemma3 prefill: one tf32x3 launch (its global layer, D = "
+        "240), none on fma", by_route_f32)
     lk, lp, lf = lk.float(), lp.float(), lf.float()
     assert lk.shape == (B, 1, cfg.padded_vocab) and bool(
         torch.isfinite(lk).all()), "gemma3 prefill logits"
@@ -2603,7 +2654,7 @@ def gemma3_path(seed: int) -> int:
                                                p_rel)
     del params
     torch.cuda.empty_cache()
-    return by_route["wgmma"]
+    return by_route, by_route_f32
 
 
 def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
@@ -2774,9 +2825,11 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     emit("flash", check="main_path_shape", **row)
     tf32_row = flash_f32_route(q.float(), k.float(), v.float(), ptxas, rates,
                                tf32_launches)
-    tf32_row["other_dims"] = flash_f32_other_dims(gen, rates)
-    gemma3_launches = gemma3_path(seed)
-    row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas, gemma3_launches)
+    tf32_row["other_dims"] = flash_other_dims(gen, rates, ptxas)
+    gemma3_bf16, gemma3_f32 = gemma3_path(seed)
+    tf32_row["gemma3_f32_prefill_launches_by_route"] = gemma3_f32
+    row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas,
+                                      gemma3_bf16["wgmma"])
     return row, tf32_row
 
 

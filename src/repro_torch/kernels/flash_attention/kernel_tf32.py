@@ -4,10 +4,12 @@ The source is ``csrc/flash_attention_tf32.cu`` (design and bounds are in its
 header): a prep kernel splits k and v into TF32 hi and lo parts (V
 transposed, keys contiguous), then wgmma ``.tf32`` computes each product as
 hi.hi + hi.lo + lo.hi (3xTF32), fed by TMA, two consumer warpgroups of 64
-query rows and no producer warpgroup. It replaces the Pallas TPU kernel
+query rows and no producer warpgroup (at D = 240 Q waits in f32, in shared
+memory and registers, and is split per k-step, and P V runs in thirds of
+O's columns). It replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py::_flash_kernel`` for float32
-inputs at head dims 16, 32, 64 and 128; ``kernel.py`` (float32 FMA) keeps
-D = 240. It is compiled with ``nvcc`` for ``sm_90a`` into
+inputs at head dims 16, 32, 64, 128 and 240. It is compiled with ``nvcc``
+for ``sm_90a`` into
 ``build/kernels/`` on first use (or by :func:`build`) and loaded with
 ``ctypes``, both through :mod:`repro_torch.kernels.nvcc_build`. The checked
 entry point with the launch counts is
@@ -24,15 +26,18 @@ import torch
 from ..nvcc_build import build_library, load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_tf32.cu"
-HEAD_DIMS = (16, 32, 64, 128)       # the .cu's template instances
+HEAD_DIMS = (16, 32, 64, 128, 240)  # the .cu's template instances
 # keys per KV tile of each instance (the .cu's Shape<D>::BK): 32 at D = 128,
-# where Q's hi and lo parts take 128 registers a thread
-BLOCK_K = {16: 64, 32: 64, 64: 64, 128: 32}
+# where Q's hi and lo parts take 128 registers a thread, and at D = 240,
+# where a K and a V^T tile of 32 keys (126,976 B) fit beside Q's f32 only
+# with 5 of its 30 k-steps in registers
+BLOCK_K = {16: 64, 32: 64, 64: 64, 128: 32, 240: 32}
+PREP_KEYS = 32                      # keys a block of the prep kernel writes
 BLOCK_Q = 128                       # query rows per CTA
 MAX_QUERY_TILES = 65535             # grid.y
 ERR_TENSOR_MAP = 10000              # + the CUresult of a refused tensor map
 
-_lib = None
+_libs: dict = {}
 
 
 def build(verbose: bool = False) -> Path:
@@ -42,10 +47,13 @@ def build(verbose: bool = False) -> Path:
     return build_library(SOURCE, verbose)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = load_library(SOURCE)
+def load(source: Path = SOURCE) -> ctypes.CDLL:
+    """The library built from ``source`` (by default the shipped .cu; the
+    variants of ``tools/flash_tf32_variants.py`` pass their own copies)
+    with its entry points' argument types set."""
+    lib = _libs.get(source)
+    if lib is None:
+        lib = load_library(source)
         P, I = ctypes.c_void_p, ctypes.c_int
         # q, k, v, out, scratch, D, B, H, K, Sq, Sk, strides,
         # scale * log2(e), causal, stream
@@ -55,18 +63,25 @@ def _load():
         # k, v, scratch, D, B, K, Sk, strides, stream
         lib.flash_attention_tf32_prep.argtypes = [P, P, P, I, I, I, I, P, P]
         lib.flash_attention_tf32_prep.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
+
+
+def padded(D: int, Sk: int, block_k: int | None = None) -> tuple[int, int]:
+    """(Skp, DP) of the prep's layout: Sk padded to the key tile
+    (``block_k``, by default :data:`BLOCK_K`) and to the prep's
+    :data:`PREP_KEYS`, and D rounded up to 32 floats (whole 128-byte rows of
+    a swizzled box: 256 at D = 240)."""
+    pad = max(block_k or BLOCK_K[D], PREP_KEYS)
+    return -(-Sk // pad) * pad, -(-D // 32) * 32
 
 
 def scratch_shapes(D: int, B: int, K: int, Sk: int) -> tuple[tuple, tuple]:
     """Shapes of the prep kernel's outputs, each stored as a hi and a lo
     part one after the other: K's (2, B*K, Skp, DP) and V^T's
-    (2, B*K, D, Skp), with Skp = Sk padded to the key tile and DP =
-    max(D, 32) (one 128-byte row of a swizzled box at least)."""
-    bk = BLOCK_K[D]
-    skp = -(-Sk // bk) * bk
-    return (2, B * K, skp, max(D, 32)), (2, B * K, D, skp)
+    (2, B*K, D, Skp), with (Skp, DP) as :func:`padded` gives them."""
+    skp, dp = padded(D, Sk)
+    return (2, B * K, skp, dp), (2, B * K, D, skp)
 
 
 def _scratch(D, B, K, Sk, device) -> torch.Tensor:
@@ -86,12 +101,14 @@ def _check(err: int) -> None:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           out: torch.Tensor, causal: bool, scale: float) -> None:
+           out: torch.Tensor, causal: bool, scale: float,
+           lib: ctypes.CDLL | None = None) -> None:
     """Launch the prep and attention kernels on tensors the caller has
     checked: q (B, Sq, H, D), k/v (B, Sk, K, D) float32 with D in
     :data:`HEAD_DIMS`, out (B, Sq, H, D) f32, all on one CUDA device, last
     dimension contiguous, strides a multiple of 4 elements and 16-byte-
-    aligned bases."""
+    aligned bases. ``lib`` is :func:`load`'s library (by default the
+    shipped one)."""
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     strides = (ctypes.c_longlong * 12)(
@@ -99,7 +116,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch = _scratch(D, B, K, Sk, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _load().flash_attention_tf32_launch(
+        err = (lib or load()).flash_attention_tf32_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), D, B, H, K, Sq, Sk,
             ctypes.cast(strides, ctypes.c_void_p),
@@ -118,7 +135,7 @@ def prep(k: torch.Tensor, v: torch.Tensor) -> tuple[torch.Tensor, ...]:
         0, 0, 0, *k.stride()[:3], *v.stride()[:3], 0, 0, 0)
     with torch.cuda.device(k.device):
         stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = _load().flash_attention_tf32_prep(
+        err = load().flash_attention_tf32_prep(
             k.data_ptr(), v.data_ptr(), scratch.data_ptr(), D, B, K, Sk,
             ctypes.cast(strides, ctypes.c_void_p), stream)
     _check(err)

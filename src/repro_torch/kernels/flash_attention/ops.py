@@ -32,10 +32,9 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
       dim 64, 128 or 240 (gemma3-12b's global layers);
     * ``"tf32x3"`` (``csrc/flash_attention_tf32.cu``, float32 on the tensor
       cores as three TF32 products, fed by TMA) for float32 inputs with
-      head dim 16, 32, 64 or 128, held to the reference's 2e-6;
+      head dim 16, 32, 64, 128 or 240, held to the reference's 2e-6;
     * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
-      for float32 at head dim 240, and for bf16 at head dims 16 and 32 (the
-      reference's test shapes).
+      for bf16 at head dims 16 and 32 (the reference's test shapes).
     """
     D = q.shape[-1]
     if q.dtype == torch.bfloat16 and D in kernel_sm90.HEAD_DIMS:

@@ -11,7 +11,7 @@ import math
 import torch
 
 from .kernel_sm90 import BLOCK_K
-from .kernel_tf32 import BLOCK_K as TF32_BLOCK_K
+from .kernel_tf32 import BLOCK_K as TF32_BLOCK_K, padded
 
 NEG_INF = -2.0e38
 LOG2E = math.log2(math.e)
@@ -164,13 +164,13 @@ def tf32x3_layout(k: torch.Tensor, v: torch.Tensor,
                   block_k: int | None = None) -> tuple[torch.Tensor, ...]:
     """The tf32x3 kernel's prep output in plain PyTorch, for k and v
     (B, Sk, K, D): K_hi, K_lo (B*K, Skp, DP) and V^T_hi, V^T_lo
-    (B*K, D, Skp), hi = :func:`tf32_rna`, lo = x - hi (exact), Skp = Sk
-    padded to the key tile (``kernel_tf32.BLOCK_K``), DP = max(D, 32), zero
-    past Sk and D, V^T's keys in :data:`KEY_ORDER` within each group of 8."""
+    (B*K, D, Skp), hi = :func:`tf32_rna`, lo = x - hi (exact), Skp and DP
+    as ``kernel_tf32.padded`` gives them (Sk padded to the key tile and to
+    the prep's 32 keys, D rounded up to 32), zero past Sk and D, V^T's keys
+    in :data:`KEY_ORDER` within each group of 8."""
     B, Sk, K, D = k.shape
-    bk = block_k or TF32_BLOCK_K[D]
-    skp = -(-Sk // bk) * bk
-    kp = torch.zeros((B, K, skp, max(D, 32)), device=k.device)
+    skp, dp = padded(D, Sk, block_k)
+    kp = torch.zeros((B, K, skp, dp), device=k.device)
     kp[:, :, :Sk, :D] = k.float().permute(0, 2, 1, 3)
     vp = torch.zeros((B, K, skp, D), device=v.device)
     vp[:, :, :Sk] = v.float().permute(0, 2, 1, 3)

@@ -241,7 +241,11 @@ def run_packed_segment(stat, dps, states, untils, *, shard: bool = False,
     Lanes are stacked to a pow2 width (tail replicated via :func:`_pack`)
     and stepped through ``engine._run_seg_batch``; a single lane runs
     ``engine._run_seg_dyn``, unstacked. ``shard`` is accepted for the
-    reference's signature and does nothing on one card.
+    reference's signature (which places lanes over its host mesh) and does
+    nothing on any number of cards: the port splits lanes over cards with
+    one worker process a device (:func:`_run_sharded`), and such a process
+    cannot keep a pack resident across segments, which is what ``packed``
+    is for.
 
     Returns ``(packed_states, packed_snaps, width)`` — lane ``i`` of each
     packed output is input lane ``i`` (``engine.take_lane``); ``width ==

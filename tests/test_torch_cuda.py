@@ -224,8 +224,8 @@ def _flash_inputs(shape, dtype, transposed=False):
 
 
 def _check_flash(q, k, v, causal, tol, want_route):
-    """One launch on ``want_route``; f32 (the tf32x3 kernel, or the FMA
-    kernel at head dim 240) held to ``tol``, bf16 on the wgmma kernel to
+    """One launch on ``want_route``; f32 (the tf32x3 kernel) held to
+    ``tol``, bf16 on the wgmma kernel to
     ref.bf16_errors (the model with one bf16 rounding of P, and the bound
     of the kernel's split P), bf16 on the FMA kernel (head dims 16 and 32)
     to ``tol``."""
@@ -312,15 +312,15 @@ def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
                                        (torch.bfloat16, 1e-5)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_head_dim_240_on_card(card, shape, dtype, tol, causal):
-    """gemma3's head dim: f32 takes the FMA kernel (the reference's 2e-6;
-    the tf32x3 kernel has no D = 240 instance),
-    bf16 the wgmma kernel's D = 240 instance (64-key tiles, four 64-column
-    boxes, the last one's 16 zero-filled columns never stored), held to
-    ref.bf16_errors with the split's bound: every one of the 240 columns
-    is written and matches the plain version."""
+    """gemma3's head dim: f32 takes the tf32x3 kernel's D = 240 instance
+    (the reference's 2e-6; Q in f32 in shared memory and registers,
+    32-key tiles, P V in thirds), bf16 the wgmma kernel's D = 240 instance (64-key tiles, four
+    64-column boxes, the last one's 16 zero-filled columns never stored),
+    held to ref.bf16_errors with the split's bound: every one of the 240
+    columns is written and matches the plain version."""
     q, k, v = _flash_inputs(shape, dtype)
     _check_flash(q, k, v, causal, tol,
-                 "fma" if dtype == torch.float32 else "wgmma")
+                 "tf32x3" if dtype == torch.float32 else "wgmma")
 
 
 @pytest.mark.cuda
@@ -356,7 +356,8 @@ def test_flash_wgmma_writes_only_its_output_on_card(card, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,Sk,K,D", [(2, 100, 2, 32), (1, 77, 1, 16),
-                                      (1, 333, 2, 64), (1, 200, 2, 128)])
+                                      (1, 333, 2, 64), (1, 200, 2, 128),
+                                      (2, 130, 2, 240)])
 def test_flash_tf32_prep_layout_on_card(card, B, Sk, K, D):
     """The prep kernel writes exactly ref.tf32x3_layout: cvt.rna's TF32 hi,
     lo = x - hi, V^T's key order and zero padding, bit for bit."""
@@ -371,7 +372,10 @@ def test_flash_tf32_prep_layout_on_card(card, B, Sk, K, D):
 @pytest.mark.parametrize("shape,causal", [((1, 333, 333, 14, 2, 64), True),
                                           ((2, 300, 2048, 14, 2, 64), False),
                                           ((1, 200, 200, 2, 2, 128), True),
-                                          ((2, 96, 96, 6, 1, 16), False)])
+                                          ((2, 96, 96, 6, 1, 16), False),
+                                          ((1, 200, 200, 16, 8, 240), True),
+                                          ((2, 77, 130, 4, 2, 240), False),
+                                          ((1, 130, 77, 4, 2, 240), True)])
 def test_flash_tf32_kernel_matches_its_model_on_card(card, shape, causal):
     """The tf32x3 kernel against attention_3xtf32_model, the same 3xTF32
     arithmetic in plain PyTorch (they differ in the tensor core's order and

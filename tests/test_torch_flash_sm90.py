@@ -150,15 +150,15 @@ def test_bf16_bar_passes_the_model_and_fails_a_fault(shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_by_dtype_and_head_dim(dtype, D):
     """bf16 at head dims 64, 128 and 240 (gemma3-12b's global layers) takes
-    the wgmma kernel; f32 at 16, 32, 64 and 128 the 3xTF32 wgmma kernel;
-    f32 at 240, and bf16 at 16 and 32 (the reference's test shapes only),
-    take the f32 FMA kernel."""
+    the wgmma kernel; f32 at every head dim (240 included) the 3xTF32 wgmma
+    kernel; bf16 at 16 and 32 (the reference's test shapes only) the f32
+    FMA kernel."""
     q = torch.empty((1, 8, 4, D), dtype=dtype, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=dtype, device="meta")
     if dtype == torch.bfloat16:
         want = "wgmma" if D in (64, 128, 240) else "fma"
     else:
-        want = "tf32x3" if D in (16, 32, 64, 128) else "fma"
+        want = "tf32x3"
     assert route(q, kv, kv) == want
 
 

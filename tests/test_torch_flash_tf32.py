@@ -34,6 +34,7 @@ SQUARE = [
     (2, 96, 96, 6, 1, 16),      # MQA
     (1, 256, 256, 2, 2, 128),   # long-ish
     (1, 333, 333, 14, 2, 64),   # qwen2 heads, ragged 64-key tiles
+    (1, 200, 200, 16, 8, 240),  # gemma3-12b's global heads, 32-key tiles
 ]
 UNEQUAL = [
     ((2, 37, 100, 4, 2, 32), True),      # fewer queries than keys
@@ -41,6 +42,9 @@ UNEQUAL = [
     ((1, 48, 80, 6, 3, 16), False),
     ((1, 1, 33, 14, 2, 64), True),       # one decode-like query
     ((1, 70, 150, 4, 2, 128), True),     # head dim 128 on 32-key tiles
+    ((1, 77, 130, 4, 2, 240), True),     # head dim 240: fewer queries
+    ((2, 130, 77, 4, 2, 240), False),    # and more
+    ((1, 130, 77, 4, 2, 240), True),     # rows 0..52 see no key
 ]
 
 
@@ -63,14 +67,14 @@ def _inputs(seed, B, Sq, Sk, H, K, D):
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 240])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_table(dtype, D):
-    """f32 at head dims 16, 32, 64 and 128 takes the tf32x3 kernel and f32
-    at 240 the FMA kernel; bf16 at 64, 128 and 240 takes the wgmma kernel
-    and bf16 at 16 and 32 the FMA kernel; and every route lands on a
-    kernel module with an instance at that head dim."""
+    """f32 at every head dim (16, 32, 64, 128 and 240) takes the tf32x3
+    kernel; bf16 at 64, 128 and 240 takes the wgmma kernel and bf16 at 16
+    and 32 the FMA kernel; and every route lands on a kernel module with an
+    instance at that head dim."""
     q = torch.empty((1, 8, 4, D), dtype=dtype, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=dtype, device="meta")
     if dtype == torch.float32:
-        want = "tf32x3" if D in (16, 32, 64, 128) else "fma"
+        want = "tf32x3"
     else:
         want = "wgmma" if D in (64, 128, 240) else "fma"
     assert route(q, kv, kv) == want
@@ -108,13 +112,15 @@ def test_model_unequal_lengths_vs_oracle_f32(shape, causal):
         rtol=F32_TOL, atol=F32_TOL)
 
 
-@pytest.mark.parametrize("block_k", [32, 64])
+@pytest.mark.parametrize("block_k", [16, 32, 64])
 @pytest.mark.parametrize("shape", [(1, 333, 333, 14, 2, 64),
-                                   (1, 200, 200, 2, 1, 128)])
+                                   (1, 200, 200, 2, 1, 128),
+                                   (1, 200, 200, 4, 2, 240)])
 def test_model_tiling_within_the_bar(shape, block_k):
-    """At 32- and 64-key tiles (the kernel's tiles at D = 128 and 64) the
-    model stays within 2e-6 of the port's oracle, and one TF32 product a
-    pair (hi.hi only) would not: the split is what meets the bar."""
+    """At 16-, 32- and 64-key tiles (the kernel's tiles at D = 240 and 128
+    are 32, at D = 64 64; 16 is its other design at D = 240) the model
+    stays within 2e-6 of the port's oracle, and one TF32 product a pair
+    (hi.hi only) would not: the split is what meets the bar."""
     (_, _, _), (q, k, v) = _inputs(sum(shape) + block_k, *shape)
     want = attention_ref(q, k, v)
     torch.testing.assert_close(
@@ -145,19 +151,23 @@ def test_tf32_rounding_is_nearest_ties_away():
 
 
 @pytest.mark.parametrize("B,Sk,K,D", [(2, 100, 2, 32), (1, 77, 1, 16),
-                                      (1, 333, 2, 64), (1, 70, 2, 128)])
+                                      (1, 333, 2, 64), (1, 70, 2, 128),
+                                      (2, 130, 2, 240), (1, 16, 1, 240)])
 def test_prep_layout_in_plain_torch(B, Sk, K, D):
     """The prep kernel's output as ``tf32x3_layout`` gives it: shapes as
-    ``kernel_tf32.scratch_shapes``; hi is TF32 and hi + lo equals k and v
-    exactly; V^T holds each group of 8 keys in KEY_ORDER; rows past Sk,
-    columns past D and V^T's padded keys are zero."""
+    ``kernel_tf32.scratch_shapes``, keys padded to the key tile and to the
+    prep's 32-key blocks, a K row to whole 32-float boxes (256 at D =
+    240); hi is TF32 and hi + lo equals k and v exactly; V^T holds each
+    group of 8 keys in KEY_ORDER; rows past Sk, columns past D and V^T's
+    padded keys are zero."""
     (_, _, _), (_, k, v) = _inputs(B + Sk + K + D, B, 1, Sk, K, K, D)
     k_hi, k_lo, vt_hi, vt_lo = tf32x3_layout(k, v)
     k_shape, v_shape = kernel_tf32.scratch_shapes(D, B, K, Sk)
     assert (2, *k_hi.shape) == k_shape and (2, *vt_hi.shape) == v_shape
     skp, dp = k_shape[2], k_shape[3]
-    assert skp % kernel_tf32.BLOCK_K[D] == 0 and skp - Sk < \
-        kernel_tf32.BLOCK_K[D] and dp == max(D, 32)
+    pad = max(kernel_tf32.BLOCK_K[D], kernel_tf32.PREP_KEYS)
+    assert skp % pad == 0 and skp - Sk < pad and pad % 32 == 0
+    assert dp % 32 == 0 and D <= dp < D + 32
     for hi in (k_hi, vt_hi):
         assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     kk = (k_hi + k_lo).reshape(B, K, skp, dp)
@@ -174,7 +184,7 @@ def test_prep_layout_in_plain_torch(B, Sk, K, D):
 
 def _instance_shapes() -> dict:
     """Each instance's ``Shape<D>`` line of the .cu file: D -> {BK,
-    STAGES}."""
+    STAGES, K_STAGES, NC, O_SMEM, Q_SMEM, PV_N[, Q_GROUP, Q_REG]}."""
     src = kernel_tf32.SOURCE.read_text()
     found = re.findall(r"template <> struct Shape<(\d+)> \{ static "
                        r"constexpr int ([^;]*);", src)
@@ -186,26 +196,58 @@ def _instance_shapes() -> dict:
 @pytest.mark.parametrize("D", kernel_tf32.HEAD_DIMS)
 def test_instance_fits_an_sm(D):
     """Per instance, from the source: BK as ``kernel_tf32.BLOCK_K`` names
-    it (and so the model's default tile), a multiple of the 32-key V^T box;
-    the ring's stages (K_hi, K_lo, V^T_hi, V^T_lo of BK keys, K rows padded
-    to 32 floats), O where it lives in shared memory, the alignment pad and
-    the barriers within the 232,448 B a block may use; and the registers a
-    consumer thread holds live — Q's hi and lo (D), the tile's P V (D / 2),
-    S and P's hi and lo (BK), and O (D / 2) unless it lives in shared
-    memory — within 240 of the 255 a thread of a 256-thread CTA may have;
-    O leaves the registers only where it would not fit there."""
+    it (and so the model's default tile), 16 or a multiple of the 32-key
+    V^T box; 64 query rows a consumer warpgroup and ``BLOCK_Q`` a CTA; P V
+    in whole 8-column wgmmas of PV_N columns. Shared memory: the K ring
+    (K_STAGES stages of K_hi and K_lo, BK rows padded to whole 32-float
+    boxes), the V^T ring (STAGES stages of V^T_hi and V^T_lo), O where it
+    lives there (D / 2 floats a thread) and Q's k-steps past the first
+    Q_REG where it does (4 floats a thread a k-step), the alignment pad and
+    the barriers within the 232,448 B a block may use. Registers a consumer
+    thread holds live, within 240 of the 255 a thread of a 256-thread CTA
+    may have: with Q in registers, Q's hi and lo (D), the tile's P V
+    (PV_N / 2), S and P's hi and lo (BK); with Q in shared memory (split per
+    k-step), in Q K^T: the small terms' accumulator, a group's Q_hi K_hi^T
+    and their sum (BK / 2 each) and the group's Q_GROUP k-steps of Q's hi
+    and lo (8 each), and in P V: the P V
+    (PV_N / 2) and P's hi and lo (BK); throughout, Q_REG k-steps of Q in
+    f32 (4 each) and O (D / 2) unless it
+    lives in shared memory. Q leaves the registers only where its hi and lo
+    would not fit there even with O in shared memory, and O only where it
+    would not fit there."""
     sh = _instance_shapes()
     assert sorted(sh) == sorted(kernel_tf32.HEAD_DIMS)
-    bk, stages, o_smem = sh[D]["BK"], sh[D]["STAGES"], sh[D]["O_SMEM"]
-    assert kernel_tf32.BLOCK_K[D] == bk and bk % 32 == 0
-    stage = 2 * bk * max(D, 32) * 4 + 2 * D * bk * 4
-    o_bytes = 256 * D // 2 * 4 if o_smem else 0
-    assert stages * stage + o_bytes + 1024 + 256 <= 232_448, (D, stage)
-    regs = D + D // 2 + bk
+    c = sh[D]
+    bk, pv_n, o_smem, q_smem = c["BK"], c["PV_N"], c["O_SMEM"], c["Q_SMEM"]
+    assert kernel_tf32.BLOCK_K[D] == bk and (bk == 16 or bk % 32 == 0)
+    assert 64 * c["NC"] == kernel_tf32.BLOCK_Q
+    assert D % pv_n == 0 and pv_n % 8 == 0
+    dp = -(-D // 32) * 32
+    k_stage, v_stage = 2 * bk * dp * 4, 2 * D * bk * 4
+    threads = 128 * c["NC"]
+    q_reg = c.get("Q_REG", 0)
+    smem = (c["K_STAGES"] * k_stage + c["STAGES"] * v_stage
+            + o_smem * threads * D // 2 * 4
+            + q_smem * threads * (D // 8 - q_reg) * 16 + 1024 + 256)
+    assert smem <= 232_448, (D, smem)
+    q_in_regs = D + pv_n // 2 + bk
+    if q_smem:
+        g = c["Q_GROUP"]
+        assert (D // 8) % g == 0
+        regs = max(3 * bk // 2 + 8 * g, pv_n // 2 + bk) + 4 * q_reg
+    else:
+        regs = q_in_regs
     assert regs + (0 if o_smem else D // 2) <= 240, D
+    assert bool(q_smem) == (q_in_regs > 240), D
     assert bool(o_smem) == (regs + D // 2 > 240), D
     if D == 64:        # 64-key tiles, 64 KB a stage, two stages
-        assert (bk, stages, stage, o_smem) == (64, 2, 65_536, 0)
+        assert (bk, c["STAGES"], k_stage + v_stage, o_smem) == \
+            (64, 2, 65_536, 0)
+    if D == 240:       # 32-key tiles, 25 k-steps of Q in f32 in shared
+        # memory (102,400 B) and 5 in registers, P V in thirds, O in
+        # registers: 212 live registers
+        assert (bk, pv_n, q_smem, q_reg, o_smem, smem, regs + D // 2) == \
+            (32, 80, 1, 5, 0, 230_656, 212)
 
 
 def test_launch_switches_match_head_dims():

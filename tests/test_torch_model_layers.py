@@ -227,9 +227,9 @@ def test_gqa_mrope_prefill_and_decode_match_reference(mrope):
 def test_gemma3_head_dim_240_takes_the_fma_and_wgmma_kernels():
     """gemma3-12b's global layers (head dim 240) with ``use_kernel`` equal
     the reference's (its Pallas kernel in interpret mode); on the card the
-    wrapper sends f32 inputs to the FMA kernel (the 3xTF32 kernel has no
-    D = 240 instance) and bf16 ones to the wgmma kernel, which both have a
-    D = 240 instance."""
+    wrapper sends f32 inputs to the 3xTF32 kernel and bf16 ones to the
+    wgmma kernel, which both have a D = 240 instance (the FMA kernel took
+    f32 here before the 3xTF32 kernel had one)."""
     cfg, cfg_ref = _cfgs("gemma3-12b", head_dim=240, n_heads=4, n_kv_heads=2,
                          d_model=64)
     w = _weights(ref_attention.gqa_spec(cfg_ref), 9, jitter=0.05)
@@ -244,7 +244,7 @@ def test_gemma3_head_dim_240_takes_the_fma_and_wgmma_kernels():
     q = torch.zeros((1, 40, 4, 240), dtype=torch.bfloat16)
     kv = torch.zeros((1, 40, 2, 240), dtype=torch.bfloat16)
     assert route(q, kv, kv) == "wgmma" and route(q.float(), kv.float(),
-                                                 kv.float()) == "fma"
+                                                 kv.float()) == "tf32x3"
     check_shapes(q, kv, kv)
 
 

@@ -176,7 +176,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
             flash_attention(*args)
     assert flash_attention.launches == before
     # the head dims the kernels have (240: gemma3-12b's global layers, bf16
-    # on the wgmma kernel, f32 on the FMA kernel) pass the shape check;
+    # on the wgmma kernel, f32 on the 3xTF32 one) pass the shape check;
     # others raise before a launch
     from repro_torch.kernels.flash_attention.ops import check_shapes, route
     for D in (16, 32, 64, 128, 240):
@@ -186,7 +186,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         assert route(qd, kd, kd) == ("wgmma" if D in (64, 128, 240)
                                      else "fma")
         qf, kf = qd.float(), kd.float()      # f32: the 3xTF32 wgmma kernel
-        assert route(qf, kf, kf) == ("fma" if D == 240 else "tf32x3")
+        assert route(qf, kf, kf) == "tf32x3"
     for D in (8, 48, 96, 256):
         qd = torch.zeros((1, 5, 4, D), device="meta")
         kd = torch.zeros((1, 7, 2, D), device="meta")

@@ -17,9 +17,12 @@ time) with four forced host devices in the subprocess's own environment
            weights made on the mesh are the ones the port was given, and,
            in f32 activations, ``jax.grad`` of the first batch's loss at
            those weights on the mesh (``"grads"``).
-``serve``  ``[(arch, ds)]``: prefill of ``d["tokens"][:, :-1]`` and one
-           decode step of the last token, f32 activations, weights placed
-           by the ``serve`` rules; the logits, caches and next token.
+``serve``  ``[(arch, ds)]``: prefill of all but the last position of
+           ``d["serve_inputs"][arch]`` (``torch_mesh_worker.serve_inputs``:
+           embeddings and M-RoPE streams for an embedding-input
+           architecture) or else of ``d["tokens"]``, and one decode step of
+           the last, f32 activations, weights placed by the ``serve`` rules;
+           the logits, caches and next token.
 ``moe``    ``[(arch, ds, capacity_factor)]``: ``repro.models.moe.moe`` on
            the mesh (weights by the ``train`` rules, tokens over "data")
            and the gradient of ``sum(y * w) + 3 aux`` with respect to the
@@ -38,7 +41,7 @@ from repro.data import DataConfig, init_state, make_batch
 from repro.models import init_params as ref_init_params
 from repro.models import lm_spec as ref_lm_spec
 
-from torch_mesh_worker import jobs_rank, run_ranks
+from torch_mesh_worker import jobs_rank, run_ranks, serve_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, B, S = 3, 8, 32
@@ -115,14 +118,18 @@ with jax.set_mesh(mesh):
                                   act_dtype="float32", moe_data_shards=ds)
         params = jax.device_put(d["params"][arch], param_shardings(
             lm_spec(cfg), mesh, "serve"))
-        toks = jnp.asarray(d["tokens"])
-        n = toks.shape[1] - 1
-        lg, caches = jax.jit(lambda p, t: prefill(p, cfg, tokens=t,
-                                                  max_len=n + 1))(
-            params, toks[:, :n])
-        lg2, caches2 = jax.jit(lambda p, t, c: decode_step(
-            p, cfg, tokens=t, caches=c, pos=jnp.asarray(n, jnp.int32)))(
-            params, toks[:, n:], caches)
+        inp = d["serve_inputs"].get(arch, {"tokens": d["tokens"]})
+        n = d["tokens"].shape[1] - 1
+
+        def part(sl):
+            return {k: jnp.asarray(v[:, :, sl] if k == "positions3"
+                                   else v[:, sl]) for k, v in inp.items()}
+        lg, caches = jax.jit(lambda p, x: prefill(p, cfg, max_len=n + 1,
+                                                  **x))(
+            params, part(slice(0, n)))
+        lg2, caches2 = jax.jit(lambda p, x, c: decode_step(
+            p, cfg, caches=c, pos=jnp.asarray(n, jnp.int32), **x))(
+            params, part(slice(n, n + 1)), caches)
         out["serve"][arch, ds] = dict(
             logits=np.asarray(lg), caches=jax.device_get(caches),
             next=np.asarray(jnp.argmax(lg2[:, -1], -1)),
@@ -193,11 +200,14 @@ def start(tmp, train=(), serve=(), moe=()):
     tokens = np.random.default_rng(3).integers(
         0, 256, (SERVE_B, SERVE_S + 1)).astype(np.int32)
     archs = {a for a, *_ in train} | {a for a, _ in serve}
+    cfgs = {a: ref_get_config(a, smoke=True) for a, _ in serve}
     d = {"shape": (STEPS, B, S), "train": list(train), "serve": list(serve),
          "params": {a: weights(a) for a in sorted(archs)},
          "batches": {a: batches(a) for a, *_ in train},
          "moe": {case: moe_inputs(*case) for case in moe},
-         "tokens": tokens}
+         "tokens": tokens,
+         "serve_inputs": {a: serve_inputs(c, SERVE_B, SERVE_S + 1)
+                          for a, c in cfgs.items() if not c.embed_inputs}}
     path = str(tmp / "in.pkl")
     with open(path, "wb") as f:
         pickle.dump(d, f)

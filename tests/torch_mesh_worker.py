@@ -102,21 +102,6 @@ def _sharded_train(tree, batches, cfg, opt_kw, mesh, grads=False):
     return out
 
 
-def train_rank(rank, path, model_axis):
-    """The reference's weights and batches (a pickle of numpy trees) through
-    the port's sharded ``make_train_step`` at bf16 and f32 activations;
-    returns ``{act dtype: losses}``."""
-    import dataclasses
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_host_mesh
-    d = _load(path)
-    mesh = make_host_mesh(model_axis)
-    return {act: _sharded_train(
-        d["params"], d["batches"], dataclasses.replace(
-            get_config("qwen2-0.5b", smoke=True), act_dtype=act), d["opt"],
-        mesh)["losses"] for act in ("bfloat16", "float32")}
-
-
 def _train_jobs(d, mesh):
     """Each ``(arch, act, ds)`` of ``d["train"]`` through the port's
     ``make_train_step`` on ``mesh`` (None: one device), activations ``act``
@@ -139,14 +124,29 @@ def _train_jobs(d, mesh):
 
 def restart_rank(rank, ckpt_root, model_axis):
     """``train()`` on the mesh: four steps straight, then two steps and a
-    fresh ``train()`` that resumes from their checkpoint."""
-    from repro_torch.launch.train import train
+    fresh ``train()`` that resumes from their checkpoint; the losses of the
+    three, and this rank's parameters after the straight run's and the
+    resumed run's last step (whole, in the reference's layout), as the
+    train step handed them back to ``train()``."""
+    from repro_torch.launch import train as loop
     kw = dict(arch="qwen2-0.5b", smoke=True, batch=8, seq=32, ckpt_every=2,
               model_axis=model_axis, device=CPU, log_every=100)
-    full = train(steps=4, ckpt_dir=f"{ckpt_root}/a", **kw)
-    first = train(steps=2, ckpt_dir=f"{ckpt_root}/b", **kw)
-    rest = train(steps=4, ckpt_dir=f"{ckpt_root}/b", **kw)
-    return full, first, rest
+    last, make = {}, loop.make_train_step
+
+    def recorded(*args, **kwargs):          # this process's train() only
+        step = make(*args, **kwargs)
+
+        def run(*xs):
+            out = step(*xs)
+            last["params"] = out[0]
+            return out
+        return run
+    loop.make_train_step = recorded
+    full = loop.train(steps=4, ckpt_dir=f"{ckpt_root}/a", **kw)
+    p_full = _host_tree(last["params"])
+    first = loop.train(steps=2, ckpt_dir=f"{ckpt_root}/b", **kw)
+    rest = loop.train(steps=4, ckpt_dir=f"{ckpt_root}/b", **kw)
+    return full, first, rest, p_full, _host_tree(last["params"])
 
 
 # ---------------------------------------------------------------- serving
@@ -160,12 +160,38 @@ def _numpy_tree(tree):
                             for g, gt in tree.items()})
 
 
-def _prefill_decode(tree, cfg, tokens, mesh, kernel: bool):
-    """Tensor-parallel prefill of ``tokens[:, :-1]`` and one decode step of
-    the last token (f32 activations, the reference's weights ``tree``
-    placed by the ``serve`` rules, or on one device with ``mesh`` None;
-    ``kernel``: the flash wrapper's path); the whole logits, caches and
-    next token, numpy."""
+def serve_inputs(cfg, batch: int, n: int, seed: int = 3) -> dict:
+    """numpy inputs of ``n`` positions for a serving job of ``cfg`` (either
+    package's config): token ids below 256, or for an embedding-input
+    architecture f32 embeddings; with M-RoPE also its three position
+    streams (distinct, sorted)."""
+    rng = np.random.default_rng(seed)
+    if cfg.embed_inputs:
+        d = {"tokens": rng.integers(0, 256, (batch, n)).astype(np.int32)}
+    else:
+        d = {"embeds": rng.normal(size=(batch, n, cfg.d_model))
+             .astype(np.float32)}
+    if cfg.mrope:
+        d["positions3"] = np.sort(rng.integers(0, 3 * n, (3, batch, n)),
+                                  axis=-1).astype(np.int32)
+    return d
+
+
+def cut_inputs(inputs: dict, sl: slice) -> dict:
+    """The positions ``sl`` of :func:`serve_inputs`' inputs (numpy,
+    contiguous)."""
+    return {k: np.ascontiguousarray(v[:, :, sl] if k == "positions3"
+                                    else v[:, sl])
+            for k, v in inputs.items()}
+
+
+def _prefill_decode(tree, cfg, inputs, mesh, kernel: bool):
+    """Tensor-parallel prefill of all but the last position of ``inputs``
+    (:func:`serve_inputs`: tokens, or embeddings with their M-RoPE
+    streams) and one decode step of the last (f32 activations, the
+    reference's weights ``tree`` placed by the ``serve`` rules, or on one
+    device with ``mesh`` None; ``kernel``: the flash wrapper's path); the
+    whole logits, caches and next token, numpy."""
     import dataclasses
     from repro_torch.distributed.sharding import param_shardings
     from repro_torch.launch.steps import (make_prefill_step,
@@ -176,21 +202,26 @@ def _prefill_decode(tree, cfg, tokens, mesh, kernel: bool):
     params = _place(params_from_numpy(tree, device=CPU),
                     lambda m: param_shardings(lm_spec(cfg), m, "serve"),
                     mesh)
-    S = tokens.shape[1] - 1
+    S = next(v.shape[1] for k, v in inputs.items() if k != "positions3") - 1
+
+    def part(sl):
+        return {k: torch.from_numpy(v)
+                for k, v in cut_inputs(inputs, sl).items()}
     pre = make_prefill_step(cfg, use_kernel=kernel, max_len=S + 1,
                             device=CPU, mesh=mesh)
-    logits, caches = pre(params, {"tokens": torch.from_numpy(tokens[:, :S])})
+    logits, caches = pre(params, part(slice(0, S)))
     serve = make_serve_step(cfg, device=CPU, mesh=mesh)
-    nxt, caches2 = serve(params, {"tokens": torch.from_numpy(tokens[:, S:]),
-                                  "caches": caches, "pos": S})
+    nxt, caches2 = serve(params, {**part(slice(S, S + 1)), "caches": caches,
+                                  "pos": S})
     return dict(logits=whole(logits).numpy(), caches=_numpy_tree(caches),
                 next=whole(nxt).numpy(), caches2=_numpy_tree(caches2))
 
 
 def _serve_jobs(d, mesh):
     """:func:`_prefill_decode` for each ``(arch, ds)`` of ``d["serve"]`` at
-    ``moe_data_shards`` ``ds``, on the plain path and, for an architecture
-    with global attention layers, on the kernel path;
+    ``moe_data_shards`` ``ds`` on ``d["serve_inputs"][arch]`` (by default
+    ``d["tokens"]``), on the plain path and, for an architecture with
+    global attention layers, on the kernel path;
     ``{(arch, ds, kernel): result}``."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -202,7 +233,8 @@ def _serve_jobs(d, mesh):
                          for m, _ in unit)
         for kernel in (False, True) if has_global else (False,):
             out[arch, ds, kernel] = _prefill_decode(
-                d["params"][arch], cfg, d["tokens"], mesh, kernel)
+                d["params"][arch], cfg, d.get("serve_inputs", {}).get(
+                    arch, {"tokens": d["tokens"]}), mesh, kernel)
     return out
 
 
@@ -289,8 +321,8 @@ def serve_rank(rank, path, model_axis):
     for arch, tree in d["params"].items():
         for kernel in (False, True):
             out[arch, kernel] = _prefill_decode(
-                tree, get_config(arch, smoke=True), d["tokens"], mesh,
-                kernel)
+                tree, get_config(arch, smoke=True), {"tokens": d["tokens"]},
+                mesh, kernel)
     # GroupServer on the mesh against one device (f32 activations: bf16
     # logits of the smoke vocabulary tie, and a tie's argmax follows the
     # last bit)

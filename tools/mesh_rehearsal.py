@@ -10,8 +10,9 @@ and batches the port makes itself, on a (2, 2) mesh of four spawned gloo
 ranks against the same jobs on one device: for each architecture (default:
 every family) at its smoke config in f32 activations, three FSDP+TP train
 steps (losses, the first step's gradients, every rank's parameters after
-the steps) and, for token models, a TP prefill of 2 x 16 tokens + 1 decode
-step; with no ARCH, first the MoE layer's output, stats and gradients at
+the steps) and a TP prefill of 2 x 16 tokens (embeddings, with their
+M-RoPE streams, for qwen2-vl-2b and musicgen-medium) + 1 decode step; with
+no ARCH, first the MoE layer's output, stats and gradients at
 capacity factor 0.5 (``moe_data_shards`` 1 and 2, ``train`` and ``serve``
 placements). One JSON line a case; a raised error is printed in the line,
 not raised.
@@ -28,7 +29,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
-from torch_mesh_worker import jobs_rank, run_jobs, run_ranks  # noqa: E402
+from torch_mesh_worker import (jobs_rank, run_jobs, run_ranks,  # noqa: E402
+                               serve_inputs)
 
 ARCHS = ("deepseek-v2-lite-16b", "arctic-480b", "mamba2-1.3b",
          "recurrentgemma-2b", "gemma3-12b", "qwen2-vl-2b", "musicgen-medium")
@@ -67,8 +69,9 @@ def jobs(arch=None, ds=1):
         batches.append({k: _host(v) for k, v in b.items()})
     d["batches"][arch] = batches
     d["train"] = [(arch, "float32", ds)]
-    if cfg.embed_inputs:
-        d["serve"] = [(arch, ds)]
+    d["serve"] = [(arch, ds)]
+    if not cfg.embed_inputs:
+        d["serve_inputs"] = {arch: serve_inputs(cfg, 2, 17)}
     return d
 
 
