@@ -7,12 +7,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
   gpu               the card's name and power limit (nvidia-smi)
   build             nvcc build of every kernel (segment_sums.cu,
-                    flash_attention.cu, flash_attention_sm90.cu and
-                    flash_attention_tf32.cu, one nvcc each, started
-                    together); ptxas's registers and spills of every
-                    kernel instance (among them the wgmma bf16 flash kernel
-                    at D = 64, 128, 240 and the tf32x3 f32 one at D = 16,
-                    32, 64, 128, 240)
+                    flash_attention_sm90.cu and flash_attention_tf32.cu,
+                    one nvcc each, started together); ptxas's registers
+                    and spills of every kernel instance (among them the
+                    wgmma bf16 flash kernel and the tf32x3 f32 one, each at
+                    D = 16, 32, 64, 128, 240)
   engine            the main path at full width: SysBench hotspot update
                     (txn_len 8, a 1,000,000-row table, 1024 threads,
                     attribution on) under the six tick-loop protocols, plus
@@ -55,7 +54,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     factor 8 (2e-4), and one flash launch per global layer
                     and prefill, each on the route the table gives f32 at
                     the architecture's head dim (tf32x3 at the smoke
-                    configs' 16 and 64); the phase's wall
+                    configs' 16 and 64). Then qwen2-0.5b's smoke config in
+                    bf16 (head dim 16; B=2, S=333): a prefill on the kernel
+                    path, one launch a layer, every one on wgmma, held to
+                    the bars of the flash phase's bf16 path check against
+                    the plain bf16 path and the plain f32 path; the phase's
+                    wall
   train             the training half. qwen2-0.5b at full width (f32
                     parameters and AdamW moments, bf16 activations, remat
                     on; weights and data of seed 0) through train()'s own
@@ -205,35 +209,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     reference tests' shapes, qwen2's heads at S = 2048,
                     Sq != Sk, head dim 128 and a transposed view: f32 (the
                     tf32x3 kernel, 3xTF32 on the tensor cores) at 2e-6;
-                    bf16 on the wgmma kernel within 2e-2,
-                    within 1.25x (+1e-6) of the max abs and RMS error of
-                    the plain model with one bf16 rounding of P
+                    bf16 (the wgmma kernel, head dims 16 and 32 included)
+                    within 2e-2, within 1.25x (+1e-6) of the max abs and RMS
+                    error of the plain model with one bf16 rounding of P
                     (attention_bf16p_model) against the f32 oracle, and
-                    within the bound of its split P (2^-18 max|v| + 2e-6);
-                    bf16 at head dims 16 and 32 (FMA kernel) at 1e-5. The
-                    kernel path against the plain path at full width (B=2,
-                    S=2048: bf16 last-token logits within 2e-2 of max
+                    within the bound of its split P (2^-18 max|v| + 2e-6).
+                    The kernel path against the plain path at full width
+                    (B=2, S=2048: bf16 last-token logits within 2e-2 of max
                     |logit|; f32 prefill-then-decode against the full
                     forward within 2e-4); at the main path's shape the same
                     bf16 bar, then kernel and SDPA timed in turns (kernel,
                     library, library, kernel). The f32 route at the same
                     shape: the tf32x3 kernel against the plain version
-                    (1e-5), beside the FMA kernel (kernel.launch, the route
-                    before it) and SDPA on the same f32 inputs, in turns
-                    (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), with both bounds
-                    (3xTF32 on the tensor cores, f32 on the CUDA cores) and
-                    ptxas's registers and spills of its D = 64 instance (no
-                    spill allowed). The other head dims at gemma3-12b's
-                    global shape (B=1, S=8,192, H=16, K=8): f32 on tf32x3
-                    at D = 240, 16, 32 and 128, and bf16 on fma at D = 16
-                    and 32, each against the plain version (1e-5), timed
-                    beside SDPA in its dtype, with the byte, CUDA-core and
-                    (tf32x3) 3xTF32 bounds; at f32 D = 240 the FMA kernel
-                    (the route before it) timed beside them on the same
-                    inputs and ptxas's report of the D = 240 instance (no
-                    spill allowed). gemma3-12b at full width (d 3840,
-                    16/8 heads of 240, vocab 262,144; bf16 weights from
-                    --seed) cut to one unit of its layout (5 local + 1
+                    (1e-5), timed beside SDPA on the same f32 inputs in
+                    turns, with ptxas's registers and spills of its D = 64
+                    instance (no spill allowed). The other head dims at
+                    gemma3-12b's global shape (B=1, S=8,192, H=16, K=8): f32
+                    on tf32x3 at D = 240, 16, 32 and 128 (1e-5), and bf16
+                    on wgmma at D = 16 and 32 (the bf16 bar and the split's
+                    bound), each timed beside SDPA in its dtype, with
+                    ptxas's report of the tf32x3 D = 240 and the wgmma D =
+                    16 and 32 instances (no spill allowed). Every flash
+                    row's bound is the largest of its bytes, its tensor work
+                    and one exp2 a visible pair on the MUFU units at the
+                    card's maximum SM clock. gemma3-12b at full width (d
+                    3840, 16/8 heads of 240, vocab 262,144; bf16 weights
+                    from --seed) cut to one unit of its layout (5 local + 1
                     global, of 48 layers): one bf16 prefill of 4,096 tokens
                     on the kernel path (one wgmma launch, counted from 0),
                     the plain path and the f32 kernel path (one tf32x3
@@ -242,10 +243,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     shape (B=1, S=8,192, H=16, K=8, D=240, bf16, causal) on
                     the wgmma kernel's D = 240 instance against the plain
                     version (the bf16 bar and the split's bound), then timed
-                    beside SDPA (in turns), its bound and the FMA kernel's
-                    D = 240 instance on the same inputs (the route before
-                    it: checked at 1e-5, timed once); ptxas's registers and
-                    spills of the D = 240 instance (no spill allowed)
+                    beside SDPA (in turns), with its bound; ptxas's
+                    registers and spills of the D = 240 instance (no spill
+                    allowed)
 
 ``--fig15-horizon TICKS`` runs only the card check (gpu) and fig15's
 skew_ramp scenario (benchmarks/fig15_adaptive.py: Zipf txn_len 4, R=8192,
@@ -278,9 +278,9 @@ ROOT = Path(__file__).resolve().parent
 PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo", "brook2pl")
 ARCH = "qwen2-0.5b"
 DECODE_STEPS = 32
-# the FMA flash kernel against its plain version on the same inputs: both
-# compute in f32 (FMA products, no TF32), so they differ only in the order of
-# sums. The wgmma kernel splits P into two bf16 parts and is held instead to
+# the tf32x3 flash kernel against its plain version on the same long inputs
+# (S = 8,192 and 32,768; the reference's 2e-6 holds at its test shapes). The
+# wgmma kernel splits P into two bf16 parts and is held instead to
 # ref.bf16_errors: the model with one bf16 rounding of P, and the split's
 # bound
 SAME_INPUTS_TOL = 1e-5
@@ -1785,6 +1785,9 @@ SMOKE_ARCHS = ("deepseek-coder-33b", "gemma3-12b", "command-r-35b",
                "arctic-480b", "deepseek-v2-lite-16b", "recurrentgemma-2b",
                "musicgen-medium", "qwen2-vl-2b", "mamba2-1.3b")
 SMOKE_ARCH_SHAPE = (2, 24)          # batch, prompt (test_decode_consistency)
+# qwen2-0.5b's smoke config in bf16 on the kernel path (head dim 16: the
+# wgmma kernel's D = 16 instance), a prompt over three 128-key tiles
+SMOKE_BF16_SHAPE = (2, 333)
 # the token-input architectures, whose smoke-size train steps the train
 # phase runs on the card and the CPU
 TRAIN_CHECK_ARCHS = ("qwen2-0.5b", "deepseek-coder-33b", "gemma3-12b",
@@ -1895,10 +1898,12 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
     token prompt, chunked against dense, 32 absorbed-MLA decode steps, a
     GroupServer of 12 requests), then the nine non-qwen2 architectures at
     their smoke configs on the card against their CPU runs (``cpu_runs``:
-    futures by architecture). Returns the flash launches expected of it by
-    route: each architecture's on the route the table gives f32 inputs at
-    its head dim, and the deterministic bf16 chunked prefill's logits (the
-    shards phase holds its mesh prefill to them)."""
+    futures by architecture), then qwen2-0.5b's smoke config in bf16 on the
+    kernel path (:func:`smoke_bf16_prefill`). Returns the flash launches
+    expected of it by route: each architecture's on the route the table
+    gives f32 inputs at its head dim, qwen2's on wgmma, and the
+    deterministic bf16 chunked prefill's logits (the shards phase holds its
+    mesh prefill to them)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels.flash_attention import flash_attention, route
     from repro_torch.kernels.flash_attention.ops import ROUTES
@@ -2036,8 +2041,57 @@ def phase_models(seed: int, cpu_runs: dict) -> dict:
         assert got["launches"] == 2 * n_glob, (arch, got["launches"])
         assert want["launches"] == 0, "the CPU runs the plain version"
         expected[f32_route] += got["launches"]
+    expected["wgmma"] += smoke_bf16_prefill(seed)
     emit("models", check="wall", seconds=time.perf_counter() - t_phase)
     return expected, moe_logits
+
+
+def smoke_bf16_prefill(seed: int) -> int:
+    """qwen2-0.5b's smoke config (2 layers, 4/2 heads of 16) with bf16
+    weights from ``seed`` and bf16 activations: a prefill of
+    SMOKE_BF16_SHAPE on the kernel path, whose flash launches (one a layer)
+    must all take the wgmma route (its D = 16 instance), against the plain
+    bf16 path (last-token logits within 2e-2 of max |logit|) and no farther
+    than BF16_PATH_MARGIN times the plain path from the plain f32 path.
+    Returns the wgmma launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import ROUTES
+    from repro_torch.models import init_params, lm_spec, prefill
+    cfg = get_config(ARCH, smoke=True)
+    params = init_params(lm_spec(cfg), seed, dtype=torch.bfloat16)
+    B, S = SMOKE_BF16_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    before = dict(flash_attention.launches_by_route)
+    lk, _ = prefill(params, cfg, tokens=toks, use_kernel=True)
+    torch.cuda.synchronize()
+    by_route = {r: flash_attention.launches_by_route[r] - before[r]
+                for r in ROUTES}
+    assert by_route == {**dict.fromkeys(ROUTES, 0), "wgmma": cfg.n_layers}, (
+        "a bf16 smoke prefill at head dim 16: one wgmma launch a layer",
+        by_route)
+    lp, _ = prefill(params, cfg, tokens=toks, use_kernel=False)
+    lf, _ = prefill(params, dataclasses.replace(cfg, act_dtype="float32"),
+                    tokens=toks, use_kernel=False)
+    lk, lp, lf = lk.float(), lp.float(), lf.float()
+    assert lk.shape == (B, 1, cfg.padded_vocab) and bool(
+        torch.isfinite(lk).all()), "smoke bf16 prefill logits"
+    scale = float(lp.abs().max())
+    err = float((lk - lp).abs().max())
+    f32_scale = float(lf.abs().max())
+    k_rel = float((lk - lf).abs().max()) / f32_scale
+    p_rel = float((lp - lf).abs().max()) / f32_scale
+    emit("models", check="smoke_bf16_kernel_path", arch=cfg.name,
+         head_dim=cfg.hd, batch=B, seq_len=S, launches_by_route=by_route,
+         max_abs_err=err, max_abs_logit=scale, rel=err / scale, tol=2e-2,
+         kernel_vs_f32_rel=k_rel, plain_vs_f32_rel=p_rel,
+         rounding_margin=BF16_PATH_MARGIN)
+    assert err <= 2e-2 * scale, ("smoke bf16 kernel path", err, scale)
+    assert k_rel <= BF16_PATH_MARGIN * p_rel, ("smoke bf16 kernel path "
+                                               "farther from f32", k_rel,
+                                               p_rel)
+    return by_route["wgmma"]
 
 
 # the train phase: qwen2-0.5b at full width (f32 parameters and AdamW
@@ -2270,6 +2324,24 @@ def gpu_query(*fields: str) -> dict:
     return dict(zip(fields, values))
 
 
+def flash_bound(exp2: int, tensor_flops: float, nbytes: float, peak: float,
+                bw: float, unit: str) -> tuple[float, str, dict]:
+    """The least time (ms) a flash call could take on this card: the
+    largest of its bytes over the memory rate ``bw``, its tensor-core work
+    over ``peak`` (named ``unit``) and its ``exp2`` exponentials, one a
+    visible (query, key) pair, on the MUFU units (16 a clock an SM) at the
+    card's maximum SM clock. Returns (ms, "bytes" or "operations", each
+    bound in ms by name)."""
+    clock = float(gpu_query("clocks.max.sm")["clocks.max.sm"])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bounds = {"bytes": nbytes / bw * 1e3, unit: tensor_flops / peak * 1e3,
+              "exp2": exp2 / (MUFU_EXP2_PER_CLOCK * n_sm * clock * 1e6)
+              * 1e3}
+    worst = max(bounds, key=bounds.get)
+    return bounds[worst], "bytes" if worst == "bytes" else "operations", \
+        bounds
+
+
 GEMMA3_ARCH = "gemma3-12b"
 
 
@@ -2302,17 +2374,14 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
     """gemma3-12b's global-layer attention at a prefill of 8,192 tokens
     (B=1, H=16, K=8, D=240, bf16, causal) on the wgmma kernel's D = 240
     instance: against the plain version (ref.bf16_errors with the split's
-    bound), then kernel and SDPA timed in turns, the plain version once,
-    and the FMA kernel's D = 240 instance (the route before it, called
-    directly: ``route`` no longer reaches it in bf16) once on the same
-    inputs, checked against the plain version (SAME_INPUTS_TOL) and timed as
-    ``earlier_ms``. ``launches`` is the wgmma launches of the cut-depth
-    gemma3 path (:func:`gemma3_path`); ``launches_per_prefill`` the full
-    model's global layers, one launch each."""
+    bound), then kernel and SDPA timed in turns, the plain version once.
+    ``launches`` is the wgmma launches of the cut-depth gemma3 path
+    (:func:`gemma3_path`); ``launches_per_prefill`` the full model's global
+    layers, one launch each."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (
-        attention_bf16p_model, attention_ref, flash_attention, kernel,
-        kernel_sm90, route)
+        attention_bf16p_model, attention_ref, flash_attention, kernel_sm90,
+        route)
     from repro_torch.kernels.flash_attention.ref import bf16_errors
     g3 = get_config(GEMMA3_ARCH)
     B, S, H, K, D = 1, 8_192, g3.n_heads, g3.n_kv_heads, g3.hd
@@ -2328,17 +2397,7 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
     emit("flash", check="vs_plain_gemma3_shape", shape=[B, S, S, H, K, D],
          dtype="torch.bfloat16", kernel_route="wgmma", **e)
     assert e["ok"], ("wgmma kernel vs plain at gemma3's shape", e)
-    out = torch.empty_like(got)
-    del got
-
-    def fma_run():
-        kernel.launch(q, k, v, out, True, D ** -0.5)
-        return out
-    fma_err = float((fma_run() - want).abs().max())
-    emit("flash", check="fma_vs_plain_gemma3_shape", kernel_route="fma",
-         max_abs_err=fma_err, tol=SAME_INPUTS_TOL)
-    assert fma_err <= SAME_INPUTS_TOL, ("FMA kernel at D = 240", fma_err)
-    del want
+    del got, want
     library_run, library_call = sdpa_library_run(q, k, v)
 
     def kernel_run():
@@ -2350,12 +2409,12 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
     kernel_runs = [t for fn, t in turns if fn is kernel_run]
     library_runs = [t for fn, t in turns if fn is library_run]
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=2)
-    earlier_ms = cuda_ms(fma_run, reps=2)
     bw, _, bf16_peak, _ = rates
     pairs = B * S * (S + 1) // 2
     flops = 4 * H * D * pairs
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    bound_ms, bound_by, bounds = flash_bound(H * pairs, flops, nbytes,
+                                             bf16_peak, bw, "bf16")
     kernel_ms = sum(kernel_runs) / 2
     inst = kernel_sm90.instance_name(D)
     regs = [u for u in ptxas if inst in u["kernel"]]
@@ -2372,18 +2431,15 @@ def flash_gemma3(gen, rates, ptxas: list, launches: int) -> dict:
            "model_max_abs_err": e["model_max_abs"],
            "split_p_bound": e["split_p_bound"],
            "ms": kernel_ms, "kernel_ms_runs": kernel_runs,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": sum(library_runs) / 2,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bounds_ms": bounds, "library_ms": sum(library_runs) / 2,
            "library_ms_runs": library_runs, "library_call": library_call,
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
            "split_p_bound_ms": 1.5 * flops / bf16_peak * 1e3,
-           "earlier_ms": earlier_ms, "earlier_max_abs_err": fma_err,
-           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
-                             "flash_attention.cu (FMA, bf16 inputs)",
            "ptxas": regs[0], "card_after_timing": card,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
-                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes}}
+                     "dtype": "bfloat16", "flops": flops, "bytes": nbytes,
+                     "exp2": H * pairs}}
     emit("flash", check="gemma3_shape", **row)
     return row
 
@@ -2393,14 +2449,14 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
     S=32,768, causal; ``q``, ``k`` and ``v`` f32): the tf32x3 kernel
     against the plain version (max abs error within SAME_INPUTS_TOL, and
     its ratio to the reference's 2e-6 + 2e-6 |want|), then timed in turns
-    beside the FMA kernel (``kernel.launch`` on the same inputs, the route
-    before it) and SDPA in f32 (tf32x3, FMA, SDPA, SDPA, FMA, tf32x3), the
-    plain version once; the 3xTF32 bound (three TF32 passes at the dense
-    TF32 peak) and the CUDA-core f32 bound; ptxas's registers and spills of
-    the D = 64 instance (no spill allowed). ``launches`` is the models
-    phase's tf32x3 launches. Returns the ``kernels`` summary's row."""
+    beside SDPA in f32 (tf32x3, SDPA, SDPA, tf32x3), the plain version
+    once; the bound (the largest of the bytes, three TF32 passes at the
+    dense TF32 peak and the exp2) and the CUDA-core f32 bound; ptxas's
+    registers and spills of the D = 64 instance (no spill allowed).
+    ``launches`` is the models phase's tf32x3 launches. Returns the
+    ``kernels`` summary's row."""
     from repro_torch.kernels.flash_attention import (
-        attention_ref, flash_attention, kernel, kernel_tf32, route)
+        attention_ref, flash_attention, kernel_tf32, route)
     from repro_torch.kernels.flash_attention.ref import F32_TOL
     B, S, H, D = q.shape
     K = k.shape[2]
@@ -2412,18 +2468,11 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
     err = float((got - want).abs().max())
     bar = float(((got - want).abs() / (F32_TOL + F32_TOL * want.abs()))
                 .max())
-    out = torch.empty_like(got)
-    del got
-
-    def fma_run():
-        kernel.launch(q, k, v, out, True, D ** -0.5)
-        return out
-    fma_err = float((fma_run() - want).abs().max())
-    del want
+    del got, want
     emit("flash", check="f32_vs_plain_main_path_shape",
          shape=[B, S, S, H, K, D], dtype="torch.float32",
          kernel_route="tf32x3", max_abs_err=err, f32_bar_ratio=bar,
-         fma_max_abs_err=fma_err, tol=SAME_INPUTS_TOL)
+         tol=SAME_INPUTS_TOL)
     assert err <= SAME_INPUTS_TOL, ("tf32x3 kernel vs plain at the main "
                                     "path's shape", err)
     library_run, library_call = sdpa_library_run(q, k, v, gqa=False)
@@ -2431,20 +2480,21 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
     def kernel_run():
         return flash_attention(q, k, v)
     turns = [(fn, cuda_ms(fn, reps=r)) for fn, r in
-             ((kernel_run, 5), (fma_run, 1), (library_run, 3),
-              (library_run, 3), (fma_run, 1), (kernel_run, 5))]
+             ((kernel_run, 5), (library_run, 3), (library_run, 3),
+              (kernel_run, 5))]
     card = gpu_query("name", "clocks.sm", "clocks.max.sm", "power.draw",
                      "power.limit")
-    kernel_runs, fma_runs, library_runs = (
-        [t for f, t in turns if f is fn]
-        for fn in (kernel_run, fma_run, library_run))
+    kernel_runs, library_runs = ([t for f, t in turns if f is fn]
+                                 for fn in (kernel_run, library_run))
     library_diff = float((library_run().transpose(1, 2)
                           - kernel_run()).abs().max())
     plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref), reps=1)
     bw, f32_peak, _, tf32_peak = rates
-    flops = 4 * H * D * B * S * (S + 1) // 2
+    pairs = H * B * S * (S + 1) // 2
+    flops = 4 * D * pairs
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 4 + B * S * H * D * 4
-    t_bytes, t_tf32 = nbytes / bw * 1e3, 3 * flops / tf32_peak * 1e3
+    bound_ms, bound_by, bounds = flash_bound(pairs, 3 * flops, nbytes,
+                                             tf32_peak, bw, "tf32x3")
     kernel_ms = sum(kernel_runs) / 2
     inst = kernel_tf32.instance_name(D)
     regs = [u for u in ptxas if inst in u["kernel"]]
@@ -2462,30 +2512,26 @@ def flash_f32_route(q, k, v, ptxas: list, rates, launches: int) -> dict:
            "launches_on": "the models phase's f32 prefills",
            "max_abs_err": err, "f32_bar_ratio": bar, "ms": kernel_ms,
            "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_tf32),
-           "bound_by": "bytes" if t_bytes >= t_tf32 else "operations",
-           "tf32x3_bound_ms": t_tf32,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bounds_ms": bounds,
+           "tf32x3_bound_ms": bounds["tf32x3"],
            "f32_cores_bound_ms": flops / f32_peak * 1e3,
            "library_ms": sum(library_runs) / 2,
            "library_ms_runs": library_runs,
            "library_call": library_call + " on f32 inputs",
            "library_vs_kernel_max_abs": library_diff,
-           "earlier_ms": sum(fma_runs) / 2, "earlier_ms_runs": fma_runs,
-           "earlier_max_abs_err": fma_err,
-           "earlier_source": "src/repro_torch/kernels/flash_attention/csrc/"
-                             "flash_attention.cu (f32 FMA)",
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
            "ptxas": regs[0], "card_after_timing": card,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
                      "dtype": "float32", "flops": flops,
-                     "tf32_flops": 3 * flops, "bytes": nbytes}}
+                     "tf32_flops": 3 * flops, "bytes": nbytes,
+                     "exp2": pairs}}
     emit("flash", check="f32_route", **row)
     return row
 
 
 # the routes at the other head dims, at gemma3-12b's global-layer shape
 # (B=1, S=8,192, H=16, K=8): f32 on tf32x3 at D = 240, 16, 32 and 128; bf16
-# on fma at D = 16 and 32 (the wgmma kernel has no instance there)
+# on wgmma at D = 16 and 32 (its instances bound by the exponentials)
 OTHER_DIMS = ((torch.float32, 240), (torch.float32, 16), (torch.float32, 32),
               (torch.float32, 128), (torch.bfloat16, 16),
               (torch.bfloat16, 32))
@@ -2493,17 +2539,18 @@ OTHER_DIMS = ((torch.float32, 240), (torch.float32, 16), (torch.float32, 32),
 
 def flash_other_dims(gen, rates, ptxas: list) -> list:
     """The flash routes at the head dims the main path's shape does not
-    take (``OTHER_DIMS``): each checked against the plain version
-    (SAME_INPUTS_TOL), then kernel and SDPA in the same dtype timed in
-    turns (kernel, SDPA, SDPA, kernel; at f32 D = 240 the FMA kernel, the
-    route before tf32x3, on the same inputs beside them: kernel, FMA, SDPA,
-    SDPA, FMA, kernel, as ``earlier_ms``), the plain version once, with the
-    byte bound, the
-    CUDA-core f32 bound and the tensor-core bound of the dtype (3xTF32 on
-    tf32x3, bf16 on the bf16 inputs of fma); ptxas's report of the tf32x3
-    D = 240 instance (no spill allowed). Returns the rows."""
+    take (``OTHER_DIMS``): f32 (tf32x3) checked against the plain version
+    (SAME_INPUTS_TOL), bf16 (wgmma) held to ref.bf16_errors with the split's
+    bound; then kernel and SDPA in the same dtype timed in turns (kernel,
+    SDPA, SDPA, kernel), the plain version once, with the bound (the
+    largest of the bytes, the dtype's tensor work, 3xTF32 on tf32x3 and
+    bf16 on wgmma, and the exp2: :func:`flash_bound`) and the CUDA-core f32
+    bound; ptxas's report of the tf32x3 D = 240 and the wgmma D = 16 and 32
+    instances (no spill allowed). Returns the rows."""
     from repro_torch.kernels.flash_attention import (
-        attention_ref, flash_attention, kernel, kernel_tf32, route)
+        attention_bf16p_model, attention_ref, flash_attention, kernel_sm90,
+        kernel_tf32, route)
+    from repro_torch.kernels.flash_attention.ref import bf16_errors
     B, S, H, K = 1, 8_192, 16, 8
     bw, f32_peak, bf16_peak, tf32_peak = rates
     rows = []
@@ -2511,71 +2558,65 @@ def flash_other_dims(gen, rates, ptxas: list) -> list:
         q = _rand(gen, (B, S, H, D), dt)
         k, v = (_rand(gen, (B, S, K, D), dt) for _ in range(2))
         rt = route(q, k, v)
+        assert rt == ("tf32x3" if dt == torch.float32 else "wgmma"), (dt, D)
         want = bf16_chunked(q, k, v, attention_ref)
-        err = float((flash_attention(q, k, v) - want).abs().max())
-        assert err <= SAME_INPUTS_TOL, ("flash route", dt, D, rt, err)
-        out = torch.empty((B, S, H, D), device="cuda")
+        got = flash_attention(q, k, v)
+        row = {"kernel_route": rt, "dtype": str(dt), "D": D,
+               "shape": [B, S, S, H, K, D]}
+        if rt == "wgmma":
+            e = bf16_errors(got, want,
+                            bf16_chunked(q, k, v, attention_bf16p_model), v)
+            row.update(max_abs_err=e["max_abs"], rms_err=e["rms"],
+                       model_max_abs_err=e["model_max_abs"],
+                       model_rms_err=e["model_rms"],
+                       split_p_bound=e["split_p_bound"], bar_ok=e["ok"])
+            assert e["ok"], ("wgmma kernel vs plain", D, e)
+        else:
+            err = float((got - want).abs().max())
+            row.update(max_abs_err=err, tol=SAME_INPUTS_TOL)
+            assert err <= SAME_INPUTS_TOL, ("flash route", dt, D, rt, err)
+        del got, want
+        library_run, library_call = sdpa_library_run(
+            q, k, v, gqa=dt != torch.float32)
 
         def kernel_run():
             return flash_attention(q, k, v)
-
-        def fma_run():
-            kernel.launch(q, k, v, out, True, D ** -0.5)
-            return out
-        earlier = dt == torch.float32 and D == 240
-        row = {"kernel_route": rt, "dtype": str(dt), "D": D,
-               "shape": [B, S, S, H, K, D], "max_abs_err": err,
-               "tol": SAME_INPUTS_TOL}
-        if earlier:
-            row["earlier_max_abs_err"] = float(
-                (fma_run() - want).abs().max())
-            assert row["earlier_max_abs_err"] <= SAME_INPUTS_TOL, row
-        del want
-        library_run, library_call = sdpa_library_run(
-            q, k, v, gqa=dt != torch.float32)
-        fns = (kernel_run, fma_run, library_run) if earlier else (
-            kernel_run, library_run)
-        turns = [(fn, cuda_ms(fn, reps=5)) for fn in fns + fns[::-1]]
-        kernel_runs, fma_runs, library_runs = (
-            [t for f, t in turns if f is fn]
-            for fn in (kernel_run, fma_run, library_run))
+        turns = [(fn, cuda_ms(fn, reps=5)) for fn in
+                 (kernel_run, library_run, library_run, kernel_run)]
+        kernel_runs, library_runs = ([t for f, t in turns if f is fn]
+                                     for fn in (kernel_run, library_run))
         plain_ms = cuda_ms(lambda: bf16_chunked(q, k, v, attention_ref),
                            reps=2)
-        flops = 4 * H * D * B * S * (S + 1) // 2
+        pairs = H * B * S * (S + 1) // 2
+        flops = 4 * D * pairs
         nbytes = ((B * S * H * D + 2 * B * S * K * D) * q.element_size()
                   + B * S * H * D * 4)
-        bounds = {"bytes": nbytes / bw * 1e3,
-                  "f32_cores": flops / f32_peak * 1e3}
-        if rt == "tf32x3":
-            bounds["tf32x3"] = 3 * flops / tf32_peak * 1e3
-        else:
-            bounds["bf16"] = flops / bf16_peak * 1e3
-        ops = bounds.get("tf32x3", bounds.get("bf16"))
+        bound_ms, bound_by, bounds = (
+            flash_bound(pairs, 3 * flops, nbytes, tf32_peak, bw, "tf32x3")
+            if rt == "tf32x3" else
+            flash_bound(pairs, flops, nbytes, bf16_peak, bw, "bf16"))
+        bounds["f32_cores"] = flops / f32_peak * 1e3
+        if rt == "wgmma" or D == 240:
+            inst = (kernel_sm90 if rt == "wgmma" else kernel_tf32
+                    ).instance_name(D)
+            regs = [u for u in ptxas if inst in u["kernel"]]
+            assert len(regs) == 1, ("ptxas report", rt, D, inst)
+            emit("flash", check=f"ptxas_{rt}_d{D}", **regs[0])
+            assert regs[0]["spill_store_bytes"] == 0, (rt, D, "spills",
+                                                       regs[0])
+            row["ptxas"] = regs[0]
         row.update({"ms": sum(kernel_runs) / len(kernel_runs),
                     "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
-                    "bound_ms": max(bounds["bytes"], ops),
-                    "bound_by": "bytes" if bounds["bytes"] >= ops
-                    else "operations", "bounds_ms": bounds,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bounds_ms": bounds,
                     "library_ms": sum(library_runs) / 2,
                     "library_ms_runs": library_runs,
                     "library_call": library_call + f" on {dt} inputs",
-                    "card": gpu_query("name", "clocks.sm", "power.limit")})
-        if earlier:
-            inst = kernel_tf32.instance_name(D)
-            regs = [u for u in ptxas if inst in u["kernel"]]
-            assert len(regs) == 1, ("ptxas report of the tf32x3 D = 240 "
-                                    "instance", inst)
-            emit("flash", check="ptxas_tf32_d240", **regs[0])
-            assert regs[0]["spill_store_bytes"] == 0, (
-                "tf32x3 D = 240 spills", regs[0])
-            row.update({"earlier_ms": sum(fma_runs) / 2,
-                        "earlier_ms_runs": fma_runs,
-                        "earlier_source": "src/repro_torch/kernels/"
-                        "flash_attention/csrc/flash_attention.cu (f32 FMA)",
-                        "ptxas": regs[0]})
+                    "card": gpu_query("name", "clocks.sm", "clocks.max.sm",
+                                      "power.limit")})
         emit("flash", check="other_dims", **row)
         rows.append(row)
-        del q, k, v, out
+        del q, k, v
     return rows
 
 
@@ -2633,7 +2674,7 @@ def gemma3_path(seed: int) -> tuple[dict, dict]:
     emit("gemma3_path", f32_launches_by_route=by_route_f32)
     assert by_route_f32 == {**dict.fromkeys(ROUTES, 0), "tf32x3": 1}, (
         "an f32 gemma3 prefill: one tf32x3 launch (its global layer, D = "
-        "240), none on fma", by_route_f32)
+        "240), none on wgmma", by_route_f32)
     lk, lp, lf = lk.float(), lp.float(), lf.float()
     assert lk.shape == (B, 1, cfg.padded_vocab) and bool(
         torch.isfinite(lk).all()), "gemma3 prefill logits"
@@ -2658,16 +2699,18 @@ def gemma3_path(seed: int) -> tuple[dict, dict]:
 
 
 def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
-                tf32_launches: int, ptxas: list, rates) -> tuple[dict, dict]:
+                tf32_launches: int, small_launches: int, ptxas: list,
+                rates) -> tuple[dict, dict]:
     """The flash kernels' checks and times; returns the bf16 (wgmma) row and
     the f32 (tf32x3) row of the ``kernels`` summary. ``launches`` and
     ``by_route`` are the model phase's (bf16 prefill), ``tf32_launches``
     the models phase's tf32x3 launches (the smoke architectures' f32
-    prefills)."""
+    prefills), ``small_launches`` its wgmma ones (qwen2's bf16 smoke
+    prefill at head dim 16)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, attention_ref, attention_bf16p_model, route)
     from repro_torch.kernels.flash_attention import kernel_sm90
-    from repro_torch.kernels.flash_attention.ref import bf16_errors
+    from repro_torch.kernels.flash_attention.ref import F32_TOL, bf16_errors
     from repro_torch.models import decode_step, forward, prefill
     from repro_torch.launch.steps import make_prefill_step
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -2682,7 +2725,10 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
              (1, 2048, 2048, 14, 2, 64, 0, gen),    # qwen2 heads
              (2, 300, 2048, 14, 2, 64, 0, gen),     # Sq != Sk
              (2, 1000, 1000, 8, 2, 128, 0, extra),  # head dim 128
-             (2, 300, 300, 14, 2, 64, 1, extra)]    # (B, H, S, D) data
+             (2, 300, 300, 14, 2, 64, 1, extra),    # (B, H, S, D) data
+             # the models phase's bf16 qwen2 smoke prefill at D = 16:
+             # ragged 128-key tiles, a full and a partial 256-row CTA
+             (2, 333, 333, 4, 2, 16, 0, extra)]
 
     def rand(g, shape, dt, transposed):
         if transposed:      # a (B, S, H, D) view of a (B, H, S, D) tensor
@@ -2695,7 +2741,8 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
             q = rand(g, (B, Sq, H, D), dt, tr)
             k, v = (rand(g, (B, Sk, K, D), dt, tr) for _ in range(2))
             path = route(q, k, v)
-            assert dt != torch.float32 or path == "tf32x3", (D, path)
+            assert path == ("tf32x3" if dt == torch.float32 else "wgmma"), (
+                D, path)
             before = flash_attention.launches_by_route[path]
             got = flash_attention(q, k, v, causal=True)
             assert flash_attention.launches_by_route[path] == before + 1
@@ -2709,12 +2756,10 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
                 emit("flash", check="vs_plain", **row, **e)
                 assert e["ok"], ("wgmma kernel vs plain", row, e)
             else:
-                # f32 (tf32x3): the reference's 2e-6; bf16 at head dims 16
-                # and 32 (the FMA kernel, f32 arithmetic on the same
-                # inputs): 1e-5
-                bar = 2e-6 if dt == torch.float32 else SAME_INPUTS_TOL
-                torch.testing.assert_close(got, want, rtol=bar, atol=bar)
-                emit("flash", check="vs_plain", **row, tol=bar,
+                # f32 (tf32x3): the reference's 2e-6
+                torch.testing.assert_close(got, want, rtol=F32_TOL,
+                                           atol=F32_TOL)
+                emit("flash", check="vs_plain", **row, tol=F32_TOL,
                      max_abs_err=float((got - want).abs().max()))
 
     # the kernel path against the plain path at full width
@@ -2794,10 +2839,10 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     pairs = B * S * (S + 1) // 2              # (query, key) pairs attended
     flops = 4 * H * D * pairs                  # QK^T and PV, 2 per FMA
     nbytes = (B * S * H * D + 2 * B * S * K * D) * 2 + B * S * H * D * 4
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
+    bound_ms, bound_by, bounds = flash_bound(H * pairs, flops, nbytes,
+                                             bf16_peak, bw, "bf16")
     clock = float(card["clocks.max.sm"])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    exp_bound_ms = pairs * H / (MUFU_EXP2_PER_CLOCK * n_sm * clock * 1e6) * 1e3
     inst = kernel_sm90.instance_name(D)
     regs = [u for u in ptxas if inst in u["kernel"]]
     row = {"name": "flash_attention", "route": "cuda",
@@ -2811,12 +2856,11 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
            "model_rms_err": e["model_rms"],
            "split_p_bound": e["split_p_bound"], "ms": kernel_ms,
            "kernel_ms_runs": kernel_runs, "plain_ms": plain_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bounds_ms": bounds,
            "library_ms": library_ms, "library_ms_runs": library_runs,
            "library_call": library_call,
            "tflops": flops / (kernel_ms * 1e-3) / 1e12,
-           "exp_bound_ms": exp_bound_ms, "sm_clock_max_mhz": clock,
+           "exp_bound_ms": bounds["exp2"], "sm_clock_max_mhz": clock,
            "sms": n_sm, "card_after_timing": card,
            "ptxas": regs[0] if regs else None,
            "shape": {"B": B, "S": S, "H": H, "K": K, "D": D,
@@ -2825,7 +2869,15 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
     emit("flash", check="main_path_shape", **row)
     tf32_row = flash_f32_route(q.float(), k.float(), v.float(), ptxas, rates,
                                tf32_launches)
-    tf32_row["other_dims"] = flash_other_dims(gen, rates, ptxas)
+    other = flash_other_dims(gen, rates, ptxas)
+    for r in other:
+        if r["kernel_route"] == "wgmma":    # the models phase's smoke prefill
+            r["launches"] = small_launches if r["D"] == 16 else 0
+            r["launches_on"] = ("qwen2-0.5b smoke's bf16 prefill (models "
+                                "phase)")
+    tf32_row["other_dims"] = [r for r in other if r["kernel_route"] ==
+                              "tf32x3"]
+    row["other_dims"] = [r for r in other if r["kernel_route"] == "wgmma"]
     gemma3_bf16, gemma3_f32 = gemma3_path(seed)
     tf32_row["gemma3_f32_prefill_launches_by_route"] = gemma3_f32
     row["gemma3_d240"] = flash_gemma3(gen, rates, ptxas,
@@ -2862,7 +2914,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.grouped_scatter import kernel, segment_sums
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention import kernel_sm90, kernel_tf32
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import ROUTES
@@ -2886,7 +2937,7 @@ def main() -> int:
         phase_fig15(args.fig15_horizon)
         emit("done", wall_s=time.perf_counter() - t_start)
         return 0
-    ptxas = phase_build([kernel, flash_kernel, kernel_sm90, kernel_tf32])
+    ptxas = phase_build([kernel, kernel_sm90, kernel_tf32])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
@@ -2935,8 +2986,8 @@ def main() -> int:
          models_launches)
     assert flash_attention.launches_by_route == models_launches, \
         ("the smoke architectures run in f32: each launch on the route the "
-         "table gives f32 at its head dim", flash_attention.launches_by_route,
-         models_launches)
+         "table gives f32 at its head dim; qwen2's bf16 smoke prefill on "
+         "wgmma", flash_attention.launches_by_route, models_launches)
     lap("models")
 
     # the training half, counted the same way (no kernel lies on it: the
@@ -3034,7 +3085,8 @@ def main() -> int:
     lap("kernels")
     flash_row, tf32_row = phase_flash(cfg, params, args.seed, flash_launches,
                                       by_route, models_launches["tf32x3"],
-                                      ptxas, card_rates(name))
+                                      models_launches["wgmma"], ptxas,
+                                      card_rates(name))
     lap("flash")
     emit("done", wall_s=time.perf_counter() - t_start, phase_wall_s=walls)
     print(json.dumps({"kernels": [row, flash_row, tf32_row]}), flush=True)

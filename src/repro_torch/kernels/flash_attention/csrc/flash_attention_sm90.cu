@@ -4,20 +4,21 @@
 //   out[b, i, h, :] = softmax_j(q[b, i, h, :] . k[b, j, h / G, :] * scale)
 //                     . v[b, j, h / G, :]        with G = H / K
 //
-// q (B, Sq, H, D), k and v (B, Sk, K, D), bfloat16, D in {64, 128, 240}, any
-// strides with the last dimension contiguous (strides a multiple of 8
-// elements, 16-byte-aligned bases: what a TMA tensor map takes). out
+// q (B, Sq, H, D), k and v (B, Sk, K, D), bfloat16, D in {16, 32, 64, 128,
+// 240}, any strides with the last dimension contiguous (strides a multiple of
+// 8 elements, 16-byte-aligned bases: what a TMA tensor map takes). out
 // (B, Sq, H, D) float32 through its strides. The function is the one of
-// flash_attention.cu (the float32 FMA kernel, which keeps f32 inputs): the
-// causal mask is aligned bottom-right (row i sees keys j <= i + Sk - Sq), a
-// masked score takes the reference's fill -2e38 and a key past the end
-// -inf, so a row with no visible key (only when Sq > Sk) averages every
-// value and a tile holding such a row scans all of Sk. The fill stays
+// flash_attention_tf32.cu (the float32 inputs' kernel) and of the reference's
+// attention_ref: the causal mask is aligned bottom-right (row i sees keys
+// j <= i + Sk - Sq), a masked score takes the reference's fill -2e38 and a
+// key past the end -inf, so a row with no visible key (only when Sq > Sk)
+// averages every value and a tile holding such a row scans all of Sk. The fill stays
 // -2e38 after the scale is folded into log2(e), and the running max starts
 // at -2e38, so exp2(m_prev - m_new) is never exp2(-inf + inf).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (_flash_kernel, line 28), as flash_attention.cu does for f32 inputs.
+// (_flash_kernel, line 28) for bfloat16 inputs, as flash_attention_tf32.cu
+// does for float32 ones.
 //
 // Bounds on an H100 SXM (132 SMs) at the prefill's shape (B=1, S=32768,
 // H=14, K=2, D=64, causal: S(S+1)/2 * H = 7.52e9 visible (query, key)
@@ -90,9 +91,48 @@
 //    tiles are issued longest-first (grid.x = heads, grid.y = query tiles
 //    in reverse), so the tiles of unequal length run in LPT order.
 // One CTA fills an SM's registers, so shared memory holds a deeper ring (4
-// stages at D = 64, 2 at D = 128 and 240: at D = 240, Q's four boxes take
-// 64 KB and a stage of K and V 64 KB, 193 KB of the 227 KB a block may use;
-// three stages, or BK = 128, do not fit). The launch allocates nothing;
+// stages at D = 16, 32 and 64, 2 at D = 128 and 240: at D = 240, Q's four
+// boxes take 64 KB and a stage of K and V 64 KB, 193 KB of the 227 KB a
+// block may use; three stages, or BK = 128, do not fit).
+//
+// D = 16 and 32 (the smoke configurations' and the reference tests' head
+// dims) are bound by the exponentials, not the tensor cores. At gemma3-12b's
+// global shape with these head dims (B=1, S=8192, H=16, K=8, causal: 5.37e8
+// visible pairs) exp2 takes 5.37e8 / (16 * 132 * 1.98 GHz) = 0.128 ms, the
+// split P's 6 * D flops a pair 0.052 / 0.104 ms, the bytes ~0.005 ms; and
+// beside each exp2 a pair costs ~6 more issue slots (FFMA, max, sum, the
+// split's pack, unpack, subtract), so the issue rate (one warp instruction a
+// clock a sub-partition) is a floor of the same order. The design:
+//  * boxes exactly D wide: (D, 1, rows, 1) with the 32-byte (D = 16) or
+//    64-byte (D = 32) swizzle, so TMA moves and shared memory holds no zero
+//    columns; QK^T is D / 16 = 1 or 2 k-steps of m64nBKk16 (K-major, SBO 8
+//    rows of 2 D bytes), P V one m64nDk16 a k-step (V MN-major, one swizzle
+//    atom of D columns, SBO 8 rows, 16 rows of 2 D bytes a k-step);
+//  * O is 8 (D 16) or 16 (D 32) registers a thread, so S and P fit beside it
+//    at 128-key tiles; S's first k-step writes fresh registers (scale-d 0)
+//    and nothing pins S or P across a tile, so they need not live at once;
+//  * four consumer warpgroups (BQ = 256), which the small O leaves room
+//    for: the work is bound by latency, not by a unit's rate (issue and
+//    MUFU were each under half busy), so more warps beside each other win.
+//    Beside a producer warpgroup, a CTA of 640 threads launches with 96
+//    registers a thread and setmaxnreg only moves registers within that
+//    pool, so the consumers get 112 (asking for 120 waits forever); at 112
+//    ptxas spilled (D 32: 200 bytes; D 16: none in one build, 420 bytes in
+//    another). So both run without a producer: 512 threads at up to 128
+//    registers, the consumers reloading the ring as at D = 240 (D 16 was
+//    4 % faster with a producer, 0.299 against 0.311 ms, when it did not
+//    spill). A warpgroup skips the tiles past its own causal limit,
+//    which are masked for all its rows. P is split into hi and lo, the ring
+//    has 4 stages. tools/flash_sm90_variants.py --part small builds and
+//    times the designs not kept (tools/flash_sm90_small_variants.patch adds
+//    their switches to a copy of this file): on an H100 at gemma3's global
+//    shape three consumers took 0.34 / 0.37 ms (D 16 / 32), two 0.40 /
+//    0.43; 64-column 128-byte-swizzled boxes 0.40 / 0.41; FA3's
+//    intra-warpgroup overlap (S, P and O live at once) 0.38-0.47 /
+//    0.46-0.51; a staggered start of the warpgroups moved two consumers
+//    with 256-key tiles from 0.40 to 0.33 but three or four by 2 % at most
+//    (PERF.md, Findings).
+// The launch allocates nothing;
 // tensor maps are encoded on the host at each launch with
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPointByVersion
 // (no -lcuda).
@@ -121,6 +161,10 @@ template <> struct Shape<128> { static constexpr int NC = 2,
   PRODUCER_WARPS = 4, CONSUMER_REGS = 240, BK = 128, STAGES = 2, PV_N = 64; };
 template <> struct Shape<240> { static constexpr int NC = 2,
   PRODUCER_WARPS = 0, CONSUMER_REGS = 255, BK = 64, STAGES = 2, PV_N = 240; };
+template <> struct Shape<16> { static constexpr int NC = 4,
+  PRODUCER_WARPS = 0, CONSUMER_REGS = 128, BK = 128, STAGES = 4, PV_N = 16; };
+template <> struct Shape<32> { static constexpr int NC = 4,
+  PRODUCER_WARPS = 0, CONSUMER_REGS = 128, BK = 128, STAGES = 4, PV_N = 32; };
 
 template <int D>
 struct Cfg : Shape<D> {
@@ -128,18 +172,30 @@ struct Cfg : Shape<D> {
   static constexpr int BQ = 64 * S::NC;                // query rows per CTA
   static constexpr int THREADS = 128 * S::NC + 32 * S::PRODUCER_WARPS;
   static constexpr bool PRODUCER = S::PRODUCER_WARPS > 0;
-  static constexpr int CHUNKS = (D + 63) / 64;         // 64-column boxes
-  static constexpr int O_CHUNKS = D / S::PV_N;         // P V wgmmas a k-step
-  static constexpr int Q_BOX = BQ * 128;               // one Q box's bytes
-  static constexpr int BOX_BYTES = S::BK * 128;        // BK rows x 64 bf16
+  // columns a box: D at D = 16 and 32 (one box a row, swizzled in rows of
+  // 2 D bytes), else 64 (128-byte swizzle)
+  static constexpr int BOX = D < 64 ? D : 64;
+  static constexpr int ROW = 2 * BOX;                  // a box row's bytes
+  // D = 16 and 32: S's first k-step writes fresh registers and P is not
+  // pinned before Q K^T, so S and P need not live at once (the older
+  // instances keep the code they were measured with)
+  static constexpr bool SMALL = D < 64;
+  static constexpr int CHUNKS = (D + BOX - 1) / BOX;   // boxes a row
+  static constexpr int O_CHUNKS = (D + S::PV_N - 1) / S::PV_N;  // P V wgmmas
+  static constexpr int Q_BOX = BQ * ROW;               // one Q box's bytes
+  static constexpr int BOX_BYTES = S::BK * ROW;        // BK rows of a box
   static constexpr int TILE_BYTES = CHUNKS * BOX_BYTES;  // K or V tile
   // Q | K[STAGES] | V[STAGES] | barriers; +1024 to align the base
   static constexpr int SMEM =
       CHUNKS * Q_BOX + 2 * S::STAGES * TILE_BYTES + 1024 + 256;
   static_assert(SMEM <= SMEM_MAX, "shared memory");
-  // with setmaxnreg the producer keeps 24 registers a thread; without, every
-  // thread has the kernel's count, which __launch_bounds__ caps
-  static_assert(PRODUCER ? 128 * S::NC * S::CONSUMER_REGS + 128 * 24 <= 65536
+  // with setmaxnreg the producer keeps 24 registers a thread and the
+  // consumers take what it gives up: the CTA keeps the pool it launched with,
+  // THREADS times the count __launch_bounds__ caps (a multiple of 8; an
+  // increase past the pool waits forever). Without, every thread has the
+  // kernel's count
+  static constexpr int POOL = THREADS * (65536 / THREADS / 8 * 8);
+  static_assert(PRODUCER ? 128 * S::NC * S::CONSUMER_REGS + 128 * 24 <= POOL
                          : THREADS * S::CONSUMER_REGS <= 65536,
                 "registers");
   static_assert(S::PRODUCER_WARPS == 4 || S::PRODUCER_WARPS == 0,
@@ -147,12 +203,16 @@ struct Cfg : Shape<D> {
   static_assert(!PRODUCER ||
                     (S::CONSUMER_REGS % 8 == 0 && S::CONSUMER_REGS <= 240),
                 "setmaxnreg");
-  static_assert(CHUNKS * 64 >= D && D % 16 == 0, "head dim");
-  // an O chunk starts at a box: 64 columns a chunk, or one chunk of all D
-  static_assert(O_CHUNKS * S::PV_N == D && S::PV_N % 16 == 0 &&
-                S::PV_N <= 256 && (S::PV_N == 64 || O_CHUNKS == 1),
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a swizzle's row");
+  static_assert(CHUNKS * BOX >= D && D % 16 == 0, "head dim");
+  // an O chunk starts at a box: a box a chunk, or one chunk of all D (at
+  // most the tile's columns; columns past D are computed, never stored)
+  static_assert(S::PV_N % 16 == 0 && S::PV_N <= 256 &&
+                (O_CHUNKS == 1 ? S::PV_N <= CHUNKS * BOX
+                               : S::PV_N == BOX && O_CHUNKS * BOX == D),
                 "P V width");
   static_assert(S::BK == 64 || S::BK == 128, "keys per tile");
+  static_assert(BQ <= 256, "a TMA box's rows");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -211,16 +271,20 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand whose atoms
-// (8 rows of 128 bytes, 1024 bytes) are 1024-byte aligned. `stride` is the
-// byte distance between 8-row groups (SBO); `lead` the distance between
-// 64-element atoms along the contiguous dimension (LBO; unused for a K-major
-// operand and for an MN-major one 64 elements wide).
+// wgmma shared-memory descriptor of an operand swizzled in rows of SW bytes
+// (128, 64 or 32: layout 1, 2 or 3 in bits 62-63) whose atoms (8 rows of SW
+// bytes) are aligned to 8 SW bytes. `stride` is the byte distance between
+// 8-row groups (SBO); `lead` the distance between atoms along the contiguous
+// dimension (LBO; unused for a K-major operand and for an MN-major one one
+// atom wide).
+template <int SW = 128>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lead,
                                               uint32_t stride) {
+  static_assert(SW == 128 || SW == 64 || SW == 32, "swizzle");
+  constexpr uint64_t layout = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lead >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((stride >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -377,6 +441,71 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[120],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64] = A (64 x 16, shared) . B (16 x 128, shared), both K-major; the
+// accumulator's old values are not read (scale-d 0), so they need not live
+__device__ __forceinline__ void wgmma_qk_first(float (&d)[64], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d[8] += A (64 x 16 bf16, registers) . B (16 x 16, shared, MN-major: one
+// swizzle atom of 16 columns)
+__device__ __forceinline__ void wgmma_pv(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[16] += A (64 x 16 bf16, registers) . B (16 x 32, shared, MN-major: one
+// swizzle atom of 32 columns)
+__device__ __forceinline__ void wgmma_pv(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -454,15 +583,26 @@ struct Params {
 
 // S = Q K^T for one warpgroup: 64 query rows at qa (Q boxes Q_BOX bytes
 // apart), BK keys at kb (K boxes BOX_BYTES apart); D / 16 k-steps of 32
-// bytes, four to a 128-byte swizzled row
-template <int D, int Q_BOX, int BOX_BYTES, int NS>
+// bytes, ROW / 32 to a swizzled row of ROW bytes (four to a 128-byte row).
+// FRESH: the first k-step writes S without reading it.
+template <int D, int ROW, int Q_BOX, int BOX_BYTES, bool FRESH, int NS>
 __device__ __forceinline__ void issue_qk(float (&s)[NS], uint32_t qa,
                                          uint32_t kb) {
+  constexpr int PER_ROW = ROW / 32;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t col = (kk % 4) * 32;
-    wgmma_qk(s, make_desc(qa + (kk / 4) * Q_BOX + col, 16, 1024),
-             make_desc(kb + (kk / 4) * BOX_BYTES + col, 16, 1024), kk > 0);
+    const uint32_t col = (kk % PER_ROW) * 32;
+    const uint64_t da = make_desc<ROW>(qa + (kk / PER_ROW) * Q_BOX + col, 16,
+                                       8 * ROW);
+    const uint64_t db = make_desc<ROW>(
+        kb + (kk / PER_ROW) * BOX_BYTES + col, 16, 8 * ROW);
+    if constexpr (FRESH) {        // S's first k-step: fresh registers
+      if (kk == 0) {
+        wgmma_qk_first(s, da, db);
+        continue;
+      }
+    }
+    wgmma_qk(s, da, db, kk > 0);
   }
 }
 
@@ -475,19 +615,20 @@ struct PFrag {
   uint32_t lo[BK / 16][4];
 };
 
-// O += P V for one warpgroup: V's BK keys at vb, 64 columns a box
-// (BOX_BYTES apart), 16 keys (2048 bytes) a k-step; one wgmma of NO * 2
-// columns (a box, or at D = 240 all four, the last read to column 239) per
-// O chunk, hi and lo
-template <int OC, int NO, int BK, int BOX_BYTES>
+// O += P V for one warpgroup: V's BK keys at vb, a box's columns in rows
+// of ROW bytes (boxes BOX_BYTES apart), 16 keys (16 ROW bytes: 2048 for
+// 64-column boxes) a k-step; one wgmma of NO * 2 columns (a box, or at D =
+// 240 all four, the last read to column 239; at D = 16 and 32 the one box
+// of D columns) per O chunk, hi and lo
+template <int OC, int NO, int BK, int ROW, int BOX_BYTES>
 __device__ __forceinline__ void issue_pv(float (&o)[OC][NO],
                                          const PFrag<BK>& p, uint32_t vb) {
 #pragma unroll
   for (int c = 0; c < OC; ++c)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dv = make_desc(vb + c * BOX_BYTES + kk * 2048,
-                                    BOX_BYTES, 1024);
+      const uint64_t dv = make_desc<ROW>(vb + c * BOX_BYTES + kk * 16 * ROW,
+                                         BOX_BYTES, 8 * ROW);
       wgmma_pv(o[c], p.hi[kk], dv);
       wgmma_pv(o[c], p.lo[kk], dv);
     }
@@ -555,6 +696,17 @@ __device__ __forceinline__ void fence_operands(float (&s)[BK / 2],
   wgmma_fence();
 }
 
+// The same before P V where S need not live on (D = 16 and 32): O and P
+// pinned, then wgmma.fence
+template <int OC, int NO, int BK>
+__device__ __forceinline__ void fence_pv_operands(float (&o)[OC][NO],
+                                                  PFrag<BK>& p) {
+  fence_o(o);
+  fence_regs(p.hi);
+  fence_regs(p.lo);
+  wgmma_fence();
+}
+
 // A consumer warpgroup's loop over KV tiles j: QK^T(j), wait, softmax(j),
 // PV(j), wait.
 template <int D>
@@ -611,21 +763,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
   auto load_q = [&] {
     mbar_expect_tx(q_full, CH * C::Q_BOX);
     for (int c = 0; c < CH; ++c)
-      tma_load(sQ + c * C::Q_BOX, &tmq, q_full, 64 * c, h, q0, b);
+      tma_load(sQ + c * C::Q_BOX, &tmq, q_full, C::BOX * c, h, q0, b);
   };
   auto load_k = [&](int j) {
     const int s = j % ST;
     mbar_expect_tx(k_full + 8 * s, C::TILE_BYTES);
     for (int c = 0; c < CH; ++c)
       tma_load(sK + s * C::TILE_BYTES + c * BOX_BYTES, &tmk, k_full + 8 * s,
-               64 * c, kh, j * BK, b);
+               C::BOX * c, kh, j * BK, b);
   };
   auto load_v = [&](int j) {
     const int s = j % ST;
     mbar_expect_tx(v_full + 8 * s, C::TILE_BYTES);
     for (int c = 0; c < CH; ++c)
       tma_load(sV + s * C::TILE_BYTES + c * BOX_BYTES, &tmv, v_full + 8 * s,
-               64 * c, kh, j * BK, b);
+               C::BOX * c, kh, j * BK, b);
   };
   constexpr bool PRODUCER = C::PRODUCER;
   if (!PRODUCER && threadIdx.x == 0) {
@@ -661,8 +813,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
     const int warp = t / 32, lane = t % 32;
     const int row0 = q0 + 64 * cw;               // the warpgroup's first row
     const Rows rw{row0 + 16 * warp + lane / 4, lane};
-    // the warpgroup's 64 rows of Q: 64 rows x 128 bytes into each box
-    const uint32_t qa = sQ + 64 * 128 * cw;
+    // the warpgroup's 64 rows of Q: 64 rows x ROW bytes into each box
+    const uint32_t qa = sQ + 64 * C::ROW * cw;
 
     constexpr int OC = C::O_CHUNKS, NO = C::PV_N / 2;
     float o[OC][NO];       // O's columns PV_N * c + 8 * (i >> 2) + ...
@@ -675,34 +827,94 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
     float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f}, alpha[2];
 
     mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kv; ++j) {
-      const int sj = j % ST;
-      const uint32_t ph = (j / ST) & 1;
-      mbar_wait(k_full + 8 * sj, ph);
-      fence_operands(s, o, p);
-      issue_qk<D, C::Q_BOX, BOX_BYTES>(s, qa, sK + sj * C::TILE_BYTES);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
-      if (lane == 0) {                           // this warp is done with K
-        if constexpr (PRODUCER)
-          mbar_arrive(k_empty + 8 * sj);
-        else if (j + ST < n_kv && last_release(k_count + sj, 4 * NC))
-          load_k(j + ST);
+    if constexpr (!C::SMALL) {
+      for (int j = 0; j < n_kv; ++j) {
+        const int sj = j % ST;
+        const uint32_t ph = (j / ST) & 1;
+        mbar_wait(k_full + 8 * sj, ph);
+        fence_operands(s, o, p);
+        issue_qk<D, C::ROW, C::Q_BOX, BOX_BYTES, false>(
+            s, qa, sK + sj * C::TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        if (lane == 0) {                           // this warp is done with K
+          if constexpr (PRODUCER)
+            mbar_arrive(k_empty + 8 * sj);
+          else if (j + ST < n_kv && last_release(k_count + sj, 4 * NC))
+            load_k(j + ST);
+        }
+        softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
+        rescale_and_pack(o, p, s, alpha);
+        mbar_wait(v_full + 8 * sj, ph);
+        fence_operands(s, o, p);
+        issue_pv<OC, NO, BK, C::ROW, BOX_BYTES>(o, p,
+                                                sV + sj * C::TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_o(o);
+        if (lane == 0) {                           // ... and with V
+          if constexpr (PRODUCER)
+            mbar_arrive(v_empty + 8 * sj);
+          else if (j + ST < n_kv && last_release(v_count + sj, 4 * NC))
+            load_v(j + ST);
+        }
       }
-      softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
-      rescale_and_pack(o, p, s, alpha);
-      mbar_wait(v_full + 8 * sj, ph);
-      fence_operands(s, o, p);
-      issue_pv<OC, NO, BK, BOX_BYTES>(o, p, sV + sj * C::TILE_BYTES);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_o(o);
-      if (lane == 0) {                           // ... and with V
-        if constexpr (PRODUCER)
-          mbar_arrive(v_empty + 8 * sj);
-        else if (j + ST < n_kv && last_release(v_count + sj, 4 * NC))
-          load_v(j + ST);
+    } else {
+      // D = 16 and 32: S written fresh by its first k-step, P pinned until
+      // its P V wgmmas are done
+      auto release_k = [&](int j) {              // this warp is done with K
+        if (lane == 0) {
+          if constexpr (PRODUCER)
+            mbar_arrive(k_empty + 8 * (j % ST));
+          else if (j + ST < n_kv && last_release(k_count + j % ST, 4 * NC))
+            load_k(j + ST);
+        }
+      };
+      auto release_v = [&](int j) {              // ... and with V
+        if (lane == 0) {
+          if constexpr (PRODUCER)
+            mbar_arrive(v_empty + 8 * (j % ST));
+          else if (j + ST < n_kv && last_release(v_count + j % ST, 4 * NC))
+            load_v(j + ST);
+        }
+      };
+      // QK^T(j), wait, softmax(j), PV(j), wait. Tiles past the warpgroup's
+      // own causal limit are masked for all its rows (they would add
+      // exp2(-2e38 - m) = 0), so it only releases them
+      int kv_wg = prm.Sk;
+      if (prm.causal && row0 + shift >= 0)
+        kv_wg = min(prm.Sk, min(row0 + 64, prm.Sq) + shift);
+      const int n_wg = min(n_kv, (kv_wg + BK - 1) / BK);     // >= 1
+      for (int j = 0; j < n_kv; ++j) {
+        const int sj = j % ST;
+        const uint32_t ph = (j / ST) & 1;
+        mbar_wait(k_full + 8 * sj, ph);
+        if (j >= n_wg) {
+          release_k(j);
+          mbar_wait(v_full + 8 * sj, ph);
+          release_v(j);
+          continue;
+        }
+        wgmma_fence();
+        issue_qk<D, C::ROW, C::Q_BOX, BOX_BYTES, true>(
+            s, qa, sK + sj * C::TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        release_k(j);
+        softmax_step(s, m, l, alpha, prm, j, row0, rw, shift);
+        rescale_and_pack(o, p, s, alpha);
+        mbar_wait(v_full + 8 * sj, ph);
+        fence_pv_operands(o, p);
+        issue_pv<OC, NO, BK, C::ROW, BOX_BYTES>(o, p,
+                                                sV + sj * C::TILE_BYTES);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_o(o);
+        fence_regs(p.hi);
+        fence_regs(p.lo);
+        release_v(j);
       }
     }
 
@@ -724,6 +936,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tmq,
       for (int c = 0; c < OC; ++c)
 #pragma unroll
         for (int g = 0; g < NO / 4; ++g) {
+          if (C::PV_N * c + 8 * g >= D) continue;  // a column past D
           const int i = 4 * g + 2 * r;
           *reinterpret_cast<float2*>(orow + C::PV_N * c + 8 * g +
                                      2 * (lane & 3)) =
@@ -759,20 +972,24 @@ EncodeTiled encode_tiled() {
 }
 
 // 4-D map over (D, heads, S, B) of a bf16 tensor with element strides
-// (sb, ss, sh, 1); box (64, 1, rows, 1), 128-byte swizzle, zero fill.
+// (sb, ss, sh, 1); box (cols, 1, rows, 1), swizzled in rows of 2 cols bytes
+// (128, 64 or 32), zero fill.
 int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
-             int B, const long long* st, int rows) {
+             int B, const long long* st, int rows, int cols) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, estr,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP + (int)r;
@@ -783,9 +1000,11 @@ int launch(const void* q, const void* k, const void* v, const long long* st,
            Params prm, int B, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
-  int e = make_map(&tq, q, D, prm.H, prm.Sq, B, st, C::BQ);
-  if (e == 0) e = make_map(&tk, k, D, prm.KH, prm.Sk, B, st + 3, C::BK);
-  if (e == 0) e = make_map(&tv, v, D, prm.KH, prm.Sk, B, st + 6, C::BK);
+  int e = make_map(&tq, q, D, prm.H, prm.Sq, B, st, C::BQ, C::BOX);
+  if (e == 0)
+    e = make_map(&tk, k, D, prm.KH, prm.Sk, B, st + 3, C::BK, C::BOX);
+  if (e == 0)
+    e = make_map(&tv, v, D, prm.KH, prm.Sk, B, st + 6, C::BK, C::BOX);
   if (e != 0) return e;
   const void* fn = (const void*)flash_sm90_kernel<D>;
   cudaError_t ce = cudaFuncSetAttribute(
@@ -810,6 +1029,10 @@ extern "C" int flash_attention_sm90_launch(
                    Sq, Sk, causal, scale_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch<16>(q, k, v, st, prm, B, s);
+    case 32:
+      return launch<32>(q, k, v, st, prm, B, s);
     case 64:
       return launch<64>(q, k, v, st, prm, B, s);
     case 128:

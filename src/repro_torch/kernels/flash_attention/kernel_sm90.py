@@ -5,11 +5,12 @@ its header): wgmma on the tensor cores, fed by TMA, with a producer
 warpgroup and three consumer warpgroups at head dim 64 (two at 128; at 240
 two and no producer, the consumers reloading the ring, so that they keep up
 to 255 registers), P split into two bf16 parts so that P V keeps f32
-accuracy. It
-replaces the Pallas TPU kernel
-``repro/kernels/flash_attention/kernel.py::_flash_kernel`` for bf16 inputs
-at head dims 64, 128 and 240; ``kernel.py`` (float32 FMA) keeps the
-rest. It is compiled with ``nvcc`` for ``sm_90a`` into
+accuracy; at 16 and 32, where the exponentials bound it, four consumer
+warpgroups and no producer (they reload the ring themselves) and boxes
+exactly D wide with the 32- or 64-byte swizzle. It replaces the Pallas TPU
+kernel ``repro/kernels/flash_attention/kernel.py::_flash_kernel`` for bf16
+inputs at every head dim the port takes (``kernel_tf32.py`` takes float32
+ones). It is compiled with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` on first use (or by :func:`build`) and loaded with
 ``ctypes``, both through :mod:`repro_torch.kernels.nvcc_build`. The checked
 entry point with the launch counts is
@@ -26,10 +27,10 @@ import torch
 from ..nvcc_build import build_library, load_library
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_sm90.cu"
-HEAD_DIMS = (64, 128, 240)          # the .cu's template instances
+HEAD_DIMS = (16, 32, 64, 128, 240)  # the .cu's template instances
 # keys per KV tile of each instance (the .cu's Shape<D>::BK): 64 at D = 240,
 # where S and P of 128 keys beside O would spill past 240 registers
-BLOCK_K = {64: 128, 128: 128, 240: 64}
+BLOCK_K = {16: 128, 32: 128, 64: 128, 128: 128, 240: 64}
 BLOCK_Q = 128                       # fewest query rows per CTA
 MAX_QUERY_TILES = 65535             # grid.y
 ERR_TENSOR_MAP = 10000              # + the CUresult of a refused tensor map

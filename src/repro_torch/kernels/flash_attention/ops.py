@@ -18,37 +18,43 @@ from __future__ import annotations
 import torch
 
 from ...device import refuse_dtensors, resolve
-from . import kernel, kernel_sm90, kernel_tf32
+from . import kernel_sm90, kernel_tf32
 from .ref import attention_ref
 
-ROUTES = ("wgmma", "tf32x3", "fma")
+# route -> the kernel's module, by the dtype it takes
+KERNELS = {"wgmma": kernel_sm90, "tf32x3": kernel_tf32}
+ROUTES = tuple(KERNELS)
+DTYPES = (torch.bfloat16, torch.float32)
+# the head dims both kernels have an instance for
+HEAD_DIMS = tuple(d for d in kernel_sm90.HEAD_DIMS
+                  if d in kernel_tf32.HEAD_DIMS)
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel a CUDA call of :func:`flash_attention` takes:
+    """The kernel a CUDA call of :func:`flash_attention` takes, by dtype, at
+    every head dim of :data:`HEAD_DIMS` (16, 32, 64, 128 and 240):
 
     * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``, bf16 tensor cores fed
-      by TMA, P split into two bf16 parts) for bf16 q, k and v with head
-      dim 64, 128 or 240 (gemma3-12b's global layers);
+      by TMA, P split into two bf16 parts) for bf16 q, k and v;
     * ``"tf32x3"`` (``csrc/flash_attention_tf32.cu``, float32 on the tensor
-      cores as three TF32 products, fed by TMA) for float32 inputs with
-      head dim 16, 32, 64, 128 or 240, held to the reference's 2e-6;
-    * ``"fma"`` (``csrc/flash_attention.cu``, float32 FMA on the CUDA cores)
-      for bf16 at head dims 16 and 32 (the reference's test shapes).
+      cores as three TF32 products, fed by TMA) for float32 inputs, held to
+      the reference's 2e-6.
+
+    Raises ``TypeError`` for any other dtype.
     """
-    D = q.shape[-1]
-    if q.dtype == torch.bfloat16 and D in kernel_sm90.HEAD_DIMS:
+    if q.dtype == torch.bfloat16:
         return "wgmma"
-    if q.dtype == torch.float32 and D in kernel_tf32.HEAD_DIMS:
+    if q.dtype == torch.float32:
         return "tf32x3"
-    return "fma"
+    raise TypeError(f"flash_attention: no kernel takes {q.dtype} (dtypes "
+                    f"{DTYPES})")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernels can read it, else an aligned contiguous
     copy: last dimension contiguous, 16-byte-aligned base and every other
-    stride a multiple of 16 bytes (4 float32 elements for the FMA kernel's
-    vector loads, 8 bf16 elements for a TMA tensor map)."""
+    stride a multiple of 16 bytes (4 float32 or 8 bf16 elements: what a TMA
+    tensor map and the tf32x3 prep kernel's vector loads take)."""
     size = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s * size % 16 == 0 for s in t.stride()[:-1])):
@@ -58,8 +64,8 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise ``ValueError`` unless the kernels take these shapes: q
-    (B, Sq, H, D), k and v (B, Sk, K, D) with D one of the FMA kernel's head
-    dims (:data:`kernel.HEAD_DIMS`), H a multiple of K and Sk > 0."""
+    (B, Sq, H, D), k and v (B, Sk, K, D) with D one of :data:`HEAD_DIMS`,
+    H a multiple of K and Sk > 0."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: need q (B, Sq, H, D) and k/v "
@@ -67,11 +73,36 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if D not in kernel.HEAD_DIMS or K == 0 or H % K or Sk == 0 \
+    if D not in HEAD_DIMS or K == 0 or H % K or Sk == 0 \
             or max(B, H) > 65535 or max(Sq, Sk) >= 2**31:
         raise ValueError(f"flash_attention: unsupported sizes B={B} Sq={Sq} "
                          f"Sk={Sk} H={H} K={K} D={D} (D in "
-                         f"{kernel.HEAD_DIMS}, H % K == 0, Sk > 0)")
+                         f"{HEAD_DIMS}, H % K == 0, Sk > 0)")
+
+
+def checked_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float | None = None) -> str:
+    """The route of a kernel call on q, k and v after every check that does
+    not need the card (shapes, dtypes, the tile count, the wgmma kernel's
+    ``scale >= 0``): raises ``TypeError`` or ``ValueError`` where a kernel
+    would not take the call."""
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k and v must share a dtype in "
+                        f"{DTYPES}, got {q.dtype}, {k.dtype} and "
+                        f"{v.dtype}")
+    check_shapes(q, k, v)
+    Sq, D = q.shape[1], q.shape[3]
+    scale = scale if scale is not None else D ** -0.5
+    path = route(q, k, v)
+    tiled = KERNELS[path]
+    if -(-Sq // tiled.BLOCK_Q) > tiled.MAX_QUERY_TILES:
+        raise ValueError(f"flash_attention: the {path} kernel takes at most "
+                         f"{tiled.MAX_QUERY_TILES} query tiles of "
+                         f"{tiled.BLOCK_Q}, got Sq={Sq}")
+    if path == "wgmma" and scale < 0:
+        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0, "
+                         f"got scale={scale}")
+    return path
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -92,29 +123,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention: q, k and v must lie on one CUDA "
                          f"device, got {q.device}, {k.device} and {v.device}")
-    if q.dtype not in kernel.DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q, k and v must share a dtype in "
-                        f"{kernel.DTYPES}, got {q.dtype}, {k.dtype} and "
-                        f"{v.dtype}")
-    check_shapes(q, k, v)
+    path = checked_route(q, k, v, scale)
     B, Sq, H, D = q.shape
-    Sk, K = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
-    path = route(q, k, v)
-    tiled = {"wgmma": kernel_sm90, "tf32x3": kernel_tf32}.get(path)
-    if tiled is not None and -(-Sq // tiled.BLOCK_Q) > tiled.MAX_QUERY_TILES:
-        raise ValueError(f"flash_attention: the {path} kernel takes at most "
-                         f"{tiled.MAX_QUERY_TILES} query tiles of "
-                         f"{tiled.BLOCK_Q}, got Sq={Sq}")
-    if path == "wgmma" and scale < 0:
-        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0, "
-                         f"got scale={scale}")
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    launch = (tiled or kernel).launch
-    launch(_aligned(q), _aligned(k), _aligned(v), out, causal, scale)
+    KERNELS[path].launch(_aligned(q), _aligned(k), _aligned(v), out, causal,
+                         scale)
     flash_attention.launches += 1
     flash_attention.launches_by_route[path] += 1
     return out

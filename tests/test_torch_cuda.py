@@ -225,10 +225,9 @@ def _flash_inputs(shape, dtype, transposed=False):
 
 def _check_flash(q, k, v, causal, tol, want_route):
     """One launch on ``want_route``; f32 (the tf32x3 kernel) held to
-    ``tol``, bf16 on the wgmma kernel to
-    ref.bf16_errors (the model with one bf16 rounding of P, and the bound
-    of the kernel's split P), bf16 on the FMA kernel (head dims 16 and 32)
-    to ``tol``."""
+    ``tol``, bf16 (the wgmma kernel, every head dim) to ref.bf16_errors
+    (the model with one bf16 rounding of P, and the bound of the kernel's
+    split P)."""
     assert route(q, k, v) == want_route
     before = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
@@ -257,21 +256,18 @@ def _check_flash(q, k, v, causal, tol, want_route):
     (1, 100, 37, 14, 2, 64),     # Sq > Sk: rows without a key
 ])
 # f32 on the tf32x3 kernel (3xTF32 on the tensor cores): the reference's
-# 2e-6. bf16 at head dims 64 and 128 runs the wgmma kernel, which takes P to
-# bf16 in two parts: it is held to 1.25x the error of the plain model with
-# one bf16 rounding of P against the f32 oracle (and to the reference's
-# 2e-2), and to its split's bound, 2^-18 max|v| + 2e-6; bf16 at head dims 16
-# and 32 runs the FMA kernel in f32 from the same inputs, held to 1e-5
+# 2e-6. bf16 at every head dim runs the wgmma kernel, which takes P to bf16
+# in two parts: it is held to 1.25x the error of the plain model with one
+# bf16 rounding of P against the f32 oracle (and to the reference's 2e-2),
+# and to its split's bound, 2^-18 max|v| + 2e-6 (head dims 16 and 32 ran on
+# an f32 FMA kernel held to 1e-5 until it was retired)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
-                                       (torch.bfloat16, 1e-5)])
+                                       (torch.bfloat16, None)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_on_card(card, shape, dtype, tol, causal):
     q, k, v = _flash_inputs(shape, dtype)
-    if dtype == torch.float32:
-        want = "tf32x3"
-    else:
-        want = "wgmma" if shape[-1] in (64, 128) else "fma"
-    _check_flash(q, k, v, causal, tol, want)
+    _check_flash(q, k, v, causal, tol,
+                 "tf32x3" if dtype == torch.float32 else "wgmma")
 
 
 @pytest.mark.cuda
@@ -290,17 +286,43 @@ def test_flash_wgmma_head_dim_128_and_strided_on_card(card, shape,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 32])
-def test_flash_bf16_small_head_dim_takes_fma_route_on_card(card, D):
-    """bf16 at head dims the wgmma kernel has no instance for takes the
-    documented FMA route (never the plain version); a head dim neither
-    kernel has raises before any launch."""
+def test_flash_bf16_small_head_dim_takes_wgmma_route_on_card(card, D):
+    """bf16 at head dims 16 and 32 takes the wgmma kernel (the f32 FMA
+    kernel that took them is retired; never the plain version), held to
+    the wgmma bar; a head dim no kernel has, and a negative scale (which
+    the FMA kernel took), raise before any launch."""
     q, k, v = _flash_inputs((1, 100, 100, 4, 2, D), torch.bfloat16)
-    _check_flash(q, k, v, True, 1e-5, "fma")
-    q, k, v = _flash_inputs((1, 100, 100, 4, 2, 48), torch.bfloat16)
+    _check_flash(q, k, v, True, None, "wgmma")
     before = flash_attention.launches
+    with pytest.raises(ValueError, match="scale >= 0"):
+        flash_attention(q, k, v, scale=-D ** -0.5)
+    q, k, v = _flash_inputs((1, 100, 100, 4, 2, 48), torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
     assert flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32])
+@pytest.mark.parametrize("shape,transposed", [
+    ((2, 64, 64, 4, 2, 0), False),        # tests/test_kernels.py:59-64
+    ((2, 96, 96, 6, 1, 0), False),        # MQA
+    ((2, 37, 100, 4, 2, 0), False),       # Sq < Sk, ragged Sk
+    ((1, 100, 37, 6, 3, 0), False),       # Sq > Sk: rows without a key
+    ((1, 333, 333, 14, 2, 0), False),     # ragged 128-key tiles
+    ((2, 300, 1000, 8, 1, 0), False),     # MQA, many tiles, Sq < Sk
+    ((1, 200, 333, 4, 2, 0), True),       # strided (B, H, S, D) data
+    ((2, 150, 100, 8, 8, 0), True),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_small_head_dims_on_card(card, D, shape, transposed,
+                                             causal):
+    """The D = 16 and 32 instances (boxes exactly D wide, the 32- and
+    64-byte swizzles, one m64nDk16 P V wgmma a k-step) held to the wgmma
+    bar: ref.bf16_errors with the split's bound, 2^-18 max|v| + 2e-6, and
+    the reference's 2e-2."""
+    q, k, v = _flash_inputs(shape[:5] + (D,), torch.bfloat16, transposed)
+    _check_flash(q, k, v, causal, None, "wgmma")
 
 
 @pytest.mark.cuda

@@ -7,12 +7,15 @@ scale, P rounded to bf16 before PV) is held to the JAX reference's Pallas
 kernel (interpret mode, as tests/test_kernels.py runs it) and oracle at the
 reference's bf16 bar, its tiling is shown exact in f32 with the rounding
 off, and the bar built on it (``ref.bf16_errors``) is shown to pass the
-model and fail a fault. Also the routing rule (dtype and head dim), the
-wrappers' stride rule per dtype, the ptxas report parser the smoke prints
-registers with, and each kernel instance's shared memory, registers and
-column boxes read from the source.
+model and fail a fault. Also the routing rule (bf16 at every head dim, 16
+and 32 included), the wgmma kernel's ``scale >= 0`` rule, the wrappers'
+stride rule per dtype, the ptxas report parser the smoke prints registers
+with, and each kernel instance's shared memory, registers, column boxes
+and swizzle read from the source.
 """
+import importlib.util
 import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -22,9 +25,11 @@ import torch
 from repro.kernels.flash_attention import (flash_attention as ref_flash,
                                            attention_ref as ref_attention)
 from repro_torch.kernels.flash_attention import (attention_bf16p_model,
-                                                 attention_ref, route)
+                                                 attention_ref,
+                                                 flash_attention, route)
 from repro_torch.kernels.flash_attention import kernel_sm90
-from repro_torch.kernels.flash_attention.ops import _aligned
+from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, ROUTES,
+                                                     _aligned, checked_route)
 from repro_torch.kernels.flash_attention.ref import (bf16_errors,
                                                      split_p_bound)
 from repro_torch.kernels.nvcc_build import ptxas_usage
@@ -126,7 +131,9 @@ def test_model_tiling_is_exact_in_f32(shape, causal, block_k):
 
 @pytest.mark.parametrize("shape", [(1, 333, 333, 14, 2, 64),
                                    (2, 37, 100, 4, 2, 64),
-                                   (1, 200, 200, 16, 8, 240)])
+                                   (1, 200, 200, 16, 8, 240),
+                                   (1, 333, 333, 8, 2, 16),
+                                   (2, 37, 100, 4, 1, 32)])
 def test_bf16_bar_passes_the_model_and_fails_a_fault(shape):
     """The bar of the wgmma route: the model meets it against itself, a
     second draw of the same rounding (P rounded after a 1-ulp change of the
@@ -149,26 +156,52 @@ def test_bf16_bar_passes_the_model_and_fails_a_fault(shape):
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 240])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_by_dtype_and_head_dim(dtype, D):
-    """bf16 at head dims 64, 128 and 240 (gemma3-12b's global layers) takes
-    the wgmma kernel; f32 at every head dim (240 included) the 3xTF32 wgmma
-    kernel; bf16 at 16 and 32 (the reference's test shapes only) the f32
-    FMA kernel."""
+    """bf16 at every head dim (16 and 32, the reference's test shapes and
+    the smoke configurations', as well as 64, 128 and 240) takes the wgmma
+    kernel; f32 at every head dim the 3xTF32 wgmma kernel. No other route
+    exists: the f32 FMA kernel that took bf16 at 16 and 32 is retired."""
     q = torch.empty((1, 8, 4, D), dtype=dtype, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=dtype, device="meta")
-    if dtype == torch.bfloat16:
-        want = "wgmma" if D in (64, 128, 240) else "fma"
-    else:
-        want = "tf32x3"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert route(q, kv, kv) == want
+    assert ROUTES == ("wgmma", "tf32x3") and D in HEAD_DIMS
+    assert D in kernel_sm90.HEAD_DIMS
+
+
+@pytest.mark.parametrize("D", [16, 32])
+def test_negative_scale_raises_before_a_launch(D):
+    """The wgmma kernel folds the scale into one FFMA and takes the max of
+    the raw scores on unmasked tiles, so it needs ``scale >= 0``; at head
+    dims 16 and 32 (which the retired FMA kernel took with any scale) a bf16
+    call with a negative scale raises before any launch. The f32 route takes
+    it."""
+    q = torch.empty((1, 8, 4, D), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((1, 8, 2, D), dtype=torch.bfloat16, device="meta")
+    assert checked_route(q, kv, kv) == "wgmma"
+    assert checked_route(q, kv, kv, scale=0.0) == "wgmma"
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="scale >= 0"):
+        checked_route(q, kv, kv, scale=-D ** -0.5)
+    assert flash_attention.launches == before
+    assert checked_route(q.float(), kv.float(), kv.float(),
+                         scale=-D ** -0.5) == "tf32x3"
+    # on CPU tensors the wrapper runs the plain version, which takes it
+    qc, kc = torch.randn((1, 8, 4, D)), torch.randn((1, 8, 2, D))
+    torch.testing.assert_close(
+        flash_attention(qc.bfloat16(), kc.bfloat16(), kc.bfloat16(),
+                        scale=-0.5),
+        attention_ref(qc.bfloat16(), kc.bfloat16(), kc.bfloat16(),
+                      scale=-0.5))
+    assert flash_attention.launches == before
 
 
 @pytest.mark.parametrize("dtype,copied", [(torch.bfloat16, True),
                                           (torch.float32, False)])
 def test_aligned_stride_rule_per_dtype(dtype, copied):
     """A view whose head stride is 4 elements is 8 bytes in bf16, which a
-    TMA tensor map cannot take, so it is copied; in f32 it is 16 bytes and
-    the FMA kernel reads it in place. A bf16 stride of 8 elements is read
-    in place."""
+    TMA tensor map cannot take, so it is copied; in f32 it is 16 bytes,
+    which the tf32x3 route reads in place. A bf16 stride of 8 elements is
+    read in place."""
     t = torch.zeros((2, 8, 3, 4), dtype=dtype)      # strides (96, 12, 4, 1)
     out = _aligned(t)
     assert (out is not t) == copied
@@ -224,35 +257,54 @@ def _instance_shapes() -> dict:
 
 @pytest.mark.parametrize("D", kernel_sm90.HEAD_DIMS)
 def test_instance_fits_an_sm(D):
-    """Per instance, from the source: shared memory within the 232,448 B a
-    block may use (Q boxes, two rings of K and V tiles, the alignment pad
-    and the barriers, as ``Cfg::SMEM`` adds them); registers within the
-    SM's 65,536 (with a producer warpgroup, which keeps 24 a thread through
-    setmaxnreg, 128·NC·CONSUMER_REGS + 128·24; without one, every thread
-    at the consumers' count); enough 64-column boxes to cover D; and the
-    key tile ``kernel_sm90.BLOCK_K`` (and so the plain model's default
-    tile) names."""
+    """Per instance, from the source: the box width (``Cfg::BOX``, D below
+    a threshold, else a fixed width) and its swizzle (a box row of 2 BOX
+    bytes is the 128-, 64- or 32-byte swizzle's row: D = 16 and 32 take
+    boxes exactly D wide); shared memory within the 232,448 B a block may
+    use (Q boxes, two rings of K and V tiles, the alignment pad and the barriers,
+    as ``Cfg::SMEM`` adds them); registers (with a producer warpgroup,
+    which keeps 24 a thread through setmaxnreg, 128·NC·CONSUMER_REGS +
+    128·24 within the pool the CTA launched with, its threads times the
+    count ``__launch_bounds__`` caps, a multiple of 8: setmaxnreg moves
+    registers within that pool and an increase past it waits forever;
+    without one, every thread at the consumers' count within the SM's
+    65,536); enough boxes to cover D; the P V width; and the key tile
+    ``kernel_sm90.BLOCK_K`` (and so the plain model's default tile)
+    names."""
     shapes = _instance_shapes()
     assert sorted(shapes) == sorted(kernel_sm90.HEAD_DIMS)
     sh = shapes[D]
     nc, regs, bk, stages = (sh["NC"], sh["CONSUMER_REGS"], sh["BK"],
                             sh["STAGES"])
-    chunks = -(-D // 64)
-    q_box, box = 64 * nc * 128, bk * 128
-    smem = chunks * q_box + 2 * stages * chunks * box + 1024 + 256
+    below, wide = map(int, re.search(
+        r"static constexpr int BOX = D < (\d+) \? D : (\d+);",
+        kernel_sm90.SOURCE.read_text()).groups())
+    box = D if D < below else wide
+    row = 2 * box                                # bytes: the swizzle's row
+    assert row in (32, 64, 128)
+    chunks = -(-D // box)
+    q_box, tile = 64 * nc * row, bk * row
+    smem = chunks * q_box + 2 * stages * chunks * tile + 1024 + 256
     assert smem <= 232_448, (D, smem)
+    assert 64 * nc <= 256 and bk in (64, 128)   # TMA box rows; the wgmmas
     if sh["PRODUCER_WARPS"] == 4:
-        assert 128 * nc * regs + 128 * 24 <= 65_536, (D, nc, regs)
+        threads = 128 * nc + 128
+        pool = threads * (65_536 // threads // 8 * 8)
+        assert 128 * nc * regs + 128 * 24 <= pool, (D, nc, regs, pool)
         assert regs % 8 == 0 and regs <= 240          # setmaxnreg's range
     else:
         assert sh["PRODUCER_WARPS"] == 0
         assert 128 * nc * regs <= 65_536 and regs <= 255, (D, nc, regs)
-    assert chunks * 64 >= D and D % 16 == 0
-    assert D % sh["PV_N"] == 0 and (sh["PV_N"] == 64 or sh["PV_N"] == D)
+    assert chunks * box >= D and D % 16 == 0
+    pv_n = sh["PV_N"]
+    assert pv_n % 16 == 0 and pv_n <= min(256, chunks * box)
+    assert (pv_n == box and D % box == 0) or pv_n >= D
     assert kernel_sm90.BLOCK_K[D] == bk
     if D == 240:   # 64-key tiles, a two-stage ring, one n240 P V, no producer
-        assert (nc, bk, stages, sh["PV_N"], sh["PRODUCER_WARPS"], smem) == \
+        assert (nc, bk, stages, pv_n, sh["PRODUCER_WARPS"], smem) == \
             (2, 64, 2, 240, 0, 197_888)
+    if D in (16, 32):   # exact-width boxes, one m64nDk16 P V a k-step
+        assert (box, pv_n, chunks) == (D, D, 1)
 
 
 @pytest.mark.parametrize("shape,causal", [((1, 333, 333, 14, 2, 64), True),
@@ -260,7 +312,9 @@ def test_instance_fits_an_sm(D):
                                           ((1, 256, 256, 2, 2, 128), False),
                                           ((2, 37, 100, 4, 2, 32), True),
                                           ((1, 200, 200, 16, 8, 240), True),
-                                          ((2, 77, 130, 4, 2, 240), False)])
+                                          ((2, 77, 130, 4, 2, 240), False),
+                                          ((2, 96, 96, 6, 1, 16), True),
+                                          ((1, 100, 37, 6, 3, 16), False)])
 def test_split_p_model_within_its_bound(shape, causal):
     """P split into bf16 hi + lo (the kernel's default): the model stays
     within split_p_bound of the f32 oracle, ~2^9 times closer than one
@@ -289,3 +343,28 @@ def test_split_p_bound_sees_what_one_bf16_rounding_misses():
     one = attention_bf16p_model(q, k, v)
     assert bf16_errors(one, want, one)["ok"]
     assert not bf16_errors(one, want, one, v)["ok"]
+
+
+def test_variant_switches_patch_applies():
+    """tools/flash_sm90_small_variants.patch, which adds the D = 16 and 32
+    designs not kept (BOX, OVERLAP, STAGGER, 256-key tiles) to a copy of
+    the source for tools/flash_sm90_variants.py, still applies to the
+    shipped source, hunk by hunk; its copy names the switches at their
+    defaults in both Shape lines, and every variant's Shape lines are found
+    in it."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "flash_sm90_variants", root / "tools" / "flash_sm90_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = kernel_sm90.SOURCE.read_text()
+    assert "OVERLAP" not in src and "STAGGER" not in src
+    patched = tool.apply_patch(src, tool.SWITCHES.read_text())
+    for d in (16, 32):
+        assert re.search(rf"struct Shape<{d}> \{{[^}}]*BOX = {d}, "
+                         rf"OVERLAP = 0, STAGGER = 0; \}};", patched)
+    assert "m64n256k16" in patched and "bar.sync" in patched
+    for name, lines in tool.PARTS["small"].items():
+        for d in (lines or {}):
+            assert len(re.findall(
+                rf"template <> struct Shape<{d}> \{{[^}}]*\}};", patched)) == 1

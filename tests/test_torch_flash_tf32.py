@@ -21,8 +21,8 @@ from repro.kernels.flash_attention import (flash_attention as ref_flash,
                                            attention_ref as ref_attention)
 from repro_torch.kernels.flash_attention import (attention_3xtf32_model,
                                                  attention_ref, route)
-from repro_torch.kernels.flash_attention import (kernel, kernel_sm90,
-                                                 kernel_tf32)
+from repro_torch.kernels.flash_attention import kernel_sm90, kernel_tf32
+from repro_torch.kernels.flash_attention.ops import KERNELS
 from repro_torch.kernels.flash_attention.ref import (KEY_ORDER, F32_TOL,
                                                      tf32_rna, tf32_trunc,
                                                      tf32x3_layout)
@@ -68,18 +68,16 @@ def _inputs(seed, B, Sq, Sk, H, K, D):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_table(dtype, D):
     """f32 at every head dim (16, 32, 64, 128 and 240) takes the tf32x3
-    kernel; bf16 at 64, 128 and 240 takes the wgmma kernel and bf16 at 16
-    and 32 the FMA kernel; and every route lands on a kernel module with an
-    instance at that head dim."""
+    kernel and bf16 the wgmma kernel (which took over bf16 at 16 and 32
+    from the retired FMA kernel); and every route lands on a kernel module
+    with an instance at that head dim."""
     q = torch.empty((1, 8, 4, D), dtype=dtype, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=dtype, device="meta")
-    if dtype == torch.float32:
-        want = "tf32x3"
-    else:
-        want = "wgmma" if D in (64, 128, 240) else "fma"
+    want = "tf32x3" if dtype == torch.float32 else "wgmma"
     assert route(q, kv, kv) == want
-    module = {"wgmma": kernel_sm90, "tf32x3": kernel_tf32, "fma": kernel}
-    assert D in module[want].HEAD_DIMS
+    assert KERNELS[want] is {"wgmma": kernel_sm90,
+                             "tf32x3": kernel_tf32}[want]
+    assert D in KERNELS[want].HEAD_DIMS
 
 
 @pytest.mark.parametrize("shape", SQUARE)
@@ -285,4 +283,4 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(flash_attention(q, k, v),
                                attention_ref(q, k, v), rtol=0, atol=0)
     assert flash_attention.launches_by_route == before
-    assert set(before) == {"wgmma", "tf32x3", "fma"}
+    assert set(before) == {"wgmma", "tf32x3"}

@@ -228,8 +228,9 @@ def test_gemma3_head_dim_240_takes_the_fma_and_wgmma_kernels():
     """gemma3-12b's global layers (head dim 240) with ``use_kernel`` equal
     the reference's (its Pallas kernel in interpret mode); on the card the
     wrapper sends f32 inputs to the 3xTF32 kernel and bf16 ones to the
-    wgmma kernel, which both have a D = 240 instance (the FMA kernel took
-    f32 here before the 3xTF32 kernel had one)."""
+    wgmma kernel, which both have a D = 240 instance (the FMA kernel, now
+    retired, took f32 here before the 3xTF32 kernel had one); bf16 takes
+    the wgmma kernel at every head dim."""
     cfg, cfg_ref = _cfgs("gemma3-12b", head_dim=240, n_heads=4, n_kv_heads=2,
                          d_model=64)
     w = _weights(ref_attention.gqa_spec(cfg_ref), 9, jitter=0.05)

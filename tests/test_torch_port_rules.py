@@ -183,8 +183,7 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         qd = torch.zeros((1, 5, 4, D), device="meta", dtype=torch.bfloat16)
         kd = torch.zeros((1, 7, 2, D), device="meta", dtype=torch.bfloat16)
         check_shapes(qd, kd, kd)
-        assert route(qd, kd, kd) == ("wgmma" if D in (64, 128, 240)
-                                     else "fma")
+        assert route(qd, kd, kd) == "wgmma"  # bf16: every head dim
         qf, kf = qd.float(), kd.float()      # f32: the 3xTF32 wgmma kernel
         assert route(qf, kf, kf) == "tf32x3"
     for D in (8, 48, 96, 256):

@@ -22,9 +22,9 @@ shipped).
 
 Part d240, at gemma3-12b's global layers (D = 240): copies of the shipped
 source whose ``Shape<240>`` line differs (:data:`D240_VARIANTS`), built under
-``build/kernels/variants/``, and the FMA kernel (the route before tf32x3
-took D = 240); each held on the same ragged inputs (CHECK_DRAWS draws of
-CHECK_SHAPES_240, causal and full) to the bar against ``attention_ref`` (f32)
+``build/kernels/variants/``; each held on the same ragged inputs
+(CHECK_DRAWS draws of CHECK_SHAPES_240, causal and full) to the bar against
+``attention_ref`` (f32)
 and measured against the same function in f64 (the f32 oracle's own
 distance from it is printed too); then all timed in turns at the prefill
 shape (B=1, S=8,192, H=16, K=8, causal), forward then backward through the
@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.kernels import nvcc_build
 from repro_torch.kernels.flash_attention import (attention_ref, flash_attention,
-                                                 kernel, kernel_tf32)
+                                                 kernel_tf32)
 from repro_torch.kernels.flash_attention.ref import F32_TOL
 
 MMA_SYNC = Path(__file__).resolve().parent / "flash_tf32_mma_sync.cu"
@@ -194,11 +194,6 @@ def part_d240(reps: int, gen) -> None:
         rows[name] = {"variant": name, "shape_240": fields,
                       "ptxas": usage[0] if usage else None, **bars(run)}
 
-    def fma(q, k, v, causal=True):
-        out = torch.empty_like(q)
-        kernel.launch(q, k, v, out, causal, q.shape[-1] ** -0.5)
-        return out
-    rows["fma"] = {"variant": "fma", **bars(fma)}
     print(json.dumps({"f32_oracle_vs_f64": {"bar_ratio_max": max(
         bar_ratio(w32, w64) for *_, w32, w64 in cases)}}), flush=True)
     del cases
@@ -206,7 +201,6 @@ def part_d240(reps: int, gen) -> None:
     q = torch.randn((B, S, H, D), generator=gen, device="cuda")
     k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda")
             for _ in range(2))
-    runs["fma"] = fma
     sdpa = sdpa_f32(q, k, v)
     runs["sdpa_f32"] = lambda q, k, v: sdpa()
     order = list(runs)
