@@ -2762,6 +2762,24 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
                 emit("flash", check="vs_plain", **row, tol=F32_TOL,
                      max_abs_err=float((got - want).abs().max()))
 
+    # a negative scale: the wgmma kernel on the negated keys
+    # (ops.wgmma_operands), at the bf16 smoke prefill's shape and at D = 64
+    for B, Sq, H, K, D in ((2, 333, 4, 2, 16), (1, 2048, 14, 2, 64)):
+        q = _rand(extra, (B, Sq, H, D), torch.bfloat16)
+        k, v = (_rand(extra, (B, Sq, K, D), torch.bfloat16)
+                for _ in range(2))
+        s = -D ** -0.5
+        before = flash_attention.launches_by_route["wgmma"]
+        got = flash_attention(q, k, v, causal=True, scale=s)
+        assert flash_attention.launches_by_route["wgmma"] == before + 1
+        e = bf16_errors(got, attention_ref(q, k, v, causal=True, scale=s),
+                        attention_bf16p_model(q, k, v, causal=True,
+                                              scale=s), v)
+        emit("flash", check="vs_plain_negative_scale",
+             shape=[B, Sq, Sq, H, K, D], scale=s, dtype="torch.bfloat16",
+             kernel_route="wgmma", **e)
+        assert e["ok"], ("wgmma kernel vs plain, negative scale", D, e)
+
     # the kernel path against the plain path at full width
     B, S = 2, 2048
     toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,

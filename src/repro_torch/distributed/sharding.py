@@ -371,8 +371,10 @@ def annotate(x, *dims):
     """Redistribute activation ``x``: dims is "batch" | "model" | None per
     axis (the data axes, the model axis, replicated), each kept only where
     the axis divides the dimension (the data axes also only where they hold
-    more than one rank). The identity unless a launcher
-    installed a mesh and ``x`` is a DTensor."""
+    more than one rank). The residual stream is annotated ("batch",
+    "model", None): sequence-parallel between blocks, where the model axis
+    divides the sequence (:func:`seq_gather`, :func:`seq_scatter`). The
+    identity unless a launcher installed a mesh and ``x`` is a DTensor."""
     mesh = _ACT_MESH[0]
     if mesh is None:
         return x
@@ -394,6 +396,46 @@ def annotate(x, *dims):
     spec += [None] * (x.dim() - len(spec))
     return x.redistribute(mesh, placements(tuple(spec),
                                            mesh.mesh_dim_names))
+
+
+def _seq_placements(x):
+    """``x``'s placements with its sequence shard over "model" made
+    ``Replicate``, or None where ``x`` is no DTensor sharded over "model"
+    along dimension 1."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor) or "model" not in (
+            x.device_mesh.mesh_dim_names or ()):
+        return None
+    i = x.device_mesh.mesh_dim_names.index("model")
+    if x.placements[i] != Shard(1):
+        return None
+    return x.placements[:i] + (Replicate(),) + x.placements[i + 1:]
+
+
+def seq_gather(h):
+    """A residual-shaped DTensor ``h`` (B, S, ...) sharded over "model"
+    along the sequence, whole along it on every rank of that axis (an
+    all-gather; its batch sharding over the data axes kept), so that a
+    mixer or MLP sees whole rows. Its backward is a reduce-scatter (the
+    gradient of a column-parallel product is partial over "model"). Any
+    other tensor as it is: off a mesh, and where :func:`annotate` kept the
+    sequence whole (decode's S = 1, a length the model axis does not
+    divide). Megatron's sequence parallelism, which the reference gets
+    from XLA's partitioner."""
+    pl = _seq_placements(h)
+    return h if pl is None else h.redistribute(h.device_mesh, pl)
+
+
+def seq_scatter(y, like):
+    """A block's output ``y`` placed as the residual ``like`` where
+    ``like`` is sharded over "model" along the sequence: a reduce-scatter
+    of the partial sums of a row-parallel product, a local slice of an
+    output replicated over "model" (the MoE layer's). Its backward is an
+    all-gather. ``y`` as it is wherever :func:`seq_gather` is the
+    identity."""
+    if _seq_placements(like) is None:
+        return y
+    return y.redistribute(like.device_mesh, like.placements)
 
 
 def reduce_partial(x):

@@ -80,29 +80,34 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{HEAD_DIMS}, H % K == 0, Sk > 0)")
 
 
-def checked_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float | None = None) -> str:
+def checked_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The route of a kernel call on q, k and v after every check that does
-    not need the card (shapes, dtypes, the tile count, the wgmma kernel's
-    ``scale >= 0``): raises ``TypeError`` or ``ValueError`` where a kernel
-    would not take the call."""
+    not need the card (shapes, dtypes, the tile count): raises
+    ``TypeError`` or ``ValueError`` where a kernel would not take the call.
+    Every route takes any scale (the wgmma kernel's negative one through
+    :func:`wgmma_operands`)."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share a dtype in "
                         f"{DTYPES}, got {q.dtype}, {k.dtype} and "
                         f"{v.dtype}")
     check_shapes(q, k, v)
-    Sq, D = q.shape[1], q.shape[3]
-    scale = scale if scale is not None else D ** -0.5
+    Sq = q.shape[1]
     path = route(q, k, v)
     tiled = KERNELS[path]
     if -(-Sq // tiled.BLOCK_Q) > tiled.MAX_QUERY_TILES:
         raise ValueError(f"flash_attention: the {path} kernel takes at most "
                          f"{tiled.MAX_QUERY_TILES} query tiles of "
                          f"{tiled.BLOCK_Q}, got Sq={Sq}")
-    if path == "wgmma" and scale < 0:
-        raise ValueError(f"flash_attention: the wgmma kernel needs scale >= 0, "
-                         f"got scale={scale}")
     return path
+
+
+def wgmma_operands(k: torch.Tensor, scale: float):
+    """``(k, scale)`` as the wgmma kernel takes them: the kernel folds the
+    scale into one FFMA and takes the max of the raw scores, so it needs
+    ``scale >= 0``, and a negative scale becomes ``(-k, -scale)``. Exact:
+    negating a value is exact, and q.(-k).|s| rounds as q.k.s at every
+    step (a sign flip commutes with each rounding)."""
+    return (k, scale) if scale >= 0 else (-k, -scale)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -123,9 +128,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention: q, k and v must lie on one CUDA "
                          f"device, got {q.device}, {k.device} and {v.device}")
-    path = checked_route(q, k, v, scale)
+    path = checked_route(q, k, v)
     B, Sq, H, D = q.shape
     scale = scale if scale is not None else D ** -0.5
+    if path == "wgmma":
+        k, scale = wgmma_operands(k, scale)
     out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

@@ -24,7 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
-from ..distributed.sharding import annotate, place_batch, unshard_dim
+from ..distributed.sharding import (annotate, place_batch, seq_gather,
+                                    unshard_dim)
 from .layers import (embed_spec, embed, unembed_spec, unembed,
                      rmsnorm_spec, rmsnorm)
 from .transformer import lm_block_specs, group_apply_layers
@@ -60,6 +61,14 @@ def _param_device(params, dev: torch.device) -> torch.device:
 def forward(params, cfg, tokens=None, embeds=None, mode="train",
             caches=None, pos=None, positions3=None, use_kernel=False,
             max_len=None, device=None) -> LMOutput:
+    """Embed, run the layer groups, norm and project. Under a mesh the
+    residual is annotated ("batch", "model", None) after the embedding, as
+    in the reference: sharded over the data axes along the batch and over
+    "model" along the sequence (where the axes divide them) through every
+    unit; the final norm runs on that shard, and the hidden states are
+    gathered along the sequence before the last position is taken, the
+    head projects, or the chunked CE takes them. Returns
+    :class:`LMOutput`."""
     dev = _param_device(params, resolve(device))
     if pos is not None:
         pos = torch.as_tensor(pos, dtype=torch.int64, device=dev)
@@ -68,10 +77,8 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
         x = embed(params["embed"],
                   place_batch(torch.as_tensor(tokens, device=dev)))
     else:
-        x = torch.as_tensor(embeds, device=dev)
-    # the reference's sequence-parallel residual; the batch only under a
-    # mesh here (see transformer.group_apply_layers)
-    x = annotate(x.to(act_dtype), "batch", None, None)
+        x = place_batch(torch.as_tensor(embeds, device=dev))
+    x = annotate(x.to(act_dtype), "batch", "model", None)
     if positions3 is not None:
         positions3 = torch.as_tensor(positions3, device=dev)
 
@@ -87,7 +94,8 @@ def forward(params, cfg, tokens=None, embeds=None, mode="train",
         new_caches[gkey] = nc
         aux_total = aux_total + aux
 
-    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    # the norm on the sequence shard, then whole rows for the head
+    x = seq_gather(rmsnorm(params["ln_f"], x, cfg.norm_eps))
     if mode == "prefill":
         x = x[:, -1:]          # only the last position feeds decoding
     if mode == "train" and cfg.loss_chunk:

@@ -19,7 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
-from ..distributed.sharding import annotate
+from ..distributed.sharding import annotate, seq_gather, seq_scatter
 from .attention import (gqa_spec, gqa_attend, gqa_cache_len, KVCache,
                         mla_spec, mla_attend, MLACache)
 from .layers import rmsnorm_spec, rmsnorm, mlp_spec, mlp
@@ -117,9 +117,13 @@ def lm_init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
 
 def block_apply(p, x, cfg, kind, mode, cache=None, pos=None,
                 positions3=None, use_kernel=False, max_len=None):
-    """One block. Returns (x, new_cache, aux_loss f32 scalar)."""
+    """One block. Returns (x, new_cache, aux_loss f32 scalar). On a mesh
+    ``x`` is the residual's sequence shard: each norm runs on it (per
+    token), the mixer and the MLP take its output gathered along the
+    sequence (:func:`seq_gather`), and their outputs come back to the
+    shard (:func:`seq_scatter`)."""
     mixer, mlp_kind = kind
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = seq_gather(rmsnorm(p["ln1"], x, cfg.norm_eps))
     if mixer in ("global", "local"):
         out, ncache = gqa_attend(p["attn"], h, cfg, mixer, mode, cache=cache,
                                  pos=pos, positions3=positions3,
@@ -131,18 +135,16 @@ def block_apply(p, x, cfg, kind, mode, cache=None, pos=None,
         out, ncache = rglru(p["attn"], h, cfg, mode, state=cache)
     else:
         out, ncache = ssd(p["attn"], h, cfg, mode, state=cache)
-    x = x + out
+    x = x + seq_scatter(out, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mlp_kind != "none":
-        h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        y = torch.zeros_like(x)
-        if "mlp" in p:
-            y = y + mlp(p["mlp"], h)
+        h = seq_gather(rmsnorm(p["ln2"], x, cfg.norm_eps))
+        y = mlp(p["mlp"], h) if "mlp" in p else None
         if "moe" in p:
             ym, stats = moe(p["moe"], h, cfg)
             aux = aux + stats.aux_loss
-            y = y + ym
-        x = x + y
+            y = ym if y is None else y + ym
+        x = x + seq_scatter(y, x)
     return x, ncache, aux
 
 
@@ -150,6 +152,10 @@ def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
                        positions3=None, use_kernel=False, remat=True,
                        max_len=None):
     """Run one layer group: ``p`` and ``caches`` are ``{u: [per repeat]}``.
+    Under a mesh the residual ``x`` enters each repeat of the unit
+    sequence-parallel, annotated ("batch", "model", None) as in the
+    reference, so the input a remat checkpoint keeps is each rank's
+    sequence shard.
 
     Returns (x, new_caches|None, aux_sum f32 scalar)."""
     has_cache = mode in ("prefill", "decode")
@@ -158,12 +164,7 @@ def group_apply_layers(p, x, cfg, unit, mode, caches=None, pos=None,
     new_caches = {f"u{i}": [] for i in range(len(unit))}
 
     def unit_body(x, r):
-        # the residual stream at the block boundary: the reference shards
-        # it over "model" along the sequence as well (sequence parallelism);
-        # DTensor cannot flatten a sequence-sharded activation into the rows
-        # of a matmul, forward or backward (torch 2.11 refuses, 2.13 makes
-        # non-contiguous views), so under a mesh the port shards the batch
-        x = annotate(x, "batch", None, None)
+        x = annotate(x, "batch", "model", None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ncs = []
         for i, kind in enumerate(unit):

@@ -223,7 +223,7 @@ def _flash_inputs(shape, dtype, transposed=False):
     return rand(B, Sq, H), rand(B, Sk, K), rand(B, Sk, K)
 
 
-def _check_flash(q, k, v, causal, tol, want_route):
+def _check_flash(q, k, v, causal, tol, want_route, scale=None):
     """One launch on ``want_route``; f32 (the tf32x3 kernel) held to
     ``tol``, bf16 (the wgmma kernel, every head dim) to ref.bf16_errors
     (the model with one bf16 rounding of P, and the bound of the kernel's
@@ -231,15 +231,15 @@ def _check_flash(q, k, v, causal, tol, want_route):
     assert route(q, k, v) == want_route
     before = flash_attention.launches
     by_route = dict(flash_attention.launches_by_route)
-    got = flash_attention(q, k, v, causal=causal)
+    got = flash_attention(q, k, v, causal=causal, scale=scale)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     by_route[want_route] += 1
     assert flash_attention.launches_by_route == by_route
-    want = attention_ref(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal, scale=scale)
     if want_route == "wgmma":
-        e = bf16_errors(got, want,
-                        attention_bf16p_model(q, k, v, causal=causal), v)
+        e = bf16_errors(got, want, attention_bf16p_model(
+            q, k, v, causal=causal, scale=scale), v)
         assert e["ok"], e
     else:
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
@@ -285,17 +285,26 @@ def test_flash_wgmma_head_dim_128_and_strided_on_card(card, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128, 240])
+def test_flash_bf16_negative_scale_on_card(card, D):
+    """A negative scale at the other bf16 head dims: the wgmma kernel on
+    the negated keys, held to the wgmma bar against the f32 oracle at that
+    scale."""
+    q, k, v = _flash_inputs((1, 100, 100, 4, 2, D), torch.bfloat16)
+    _check_flash(q, k, v, True, None, "wgmma", scale=-D ** -0.5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [16, 32])
 def test_flash_bf16_small_head_dim_takes_wgmma_route_on_card(card, D):
     """bf16 at head dims 16 and 32 takes the wgmma kernel (the f32 FMA
     kernel that took them is retired; never the plain version), held to
-    the wgmma bar; a head dim no kernel has, and a negative scale (which
-    the FMA kernel took), raise before any launch."""
+    the wgmma bar, with a negative scale too (launched on the negated
+    keys); a head dim no kernel has raises before any launch."""
     q, k, v = _flash_inputs((1, 100, 100, 4, 2, D), torch.bfloat16)
     _check_flash(q, k, v, True, None, "wgmma")
+    _check_flash(q, k, v, True, None, "wgmma", scale=-D ** -0.5)
     before = flash_attention.launches
-    with pytest.raises(ValueError, match="scale >= 0"):
-        flash_attention(q, k, v, scale=-D ** -0.5)
     q, k, v = _flash_inputs((1, 100, 100, 4, 2, 48), torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(q, k, v)

@@ -8,7 +8,7 @@ kernel (interpret mode, as tests/test_kernels.py runs it) and oracle at the
 reference's bf16 bar, its tiling is shown exact in f32 with the rounding
 off, and the bar built on it (``ref.bf16_errors``) is shown to pass the
 model and fail a fault. Also the routing rule (bf16 at every head dim, 16
-and 32 included), the wgmma kernel's ``scale >= 0`` rule, the wrappers'
+and 32 included), a negative scale on negated keys, the wrappers'
 stride rule per dtype, the ptxas report parser the smoke prints registers
 with, and each kernel instance's shared memory, registers, column boxes
 and swizzle read from the source.
@@ -29,7 +29,8 @@ from repro_torch.kernels.flash_attention import (attention_bf16p_model,
                                                  flash_attention, route)
 from repro_torch.kernels.flash_attention import kernel_sm90
 from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, ROUTES,
-                                                     _aligned, checked_route)
+                                                     _aligned, checked_route,
+                                                     wgmma_operands)
 from repro_torch.kernels.flash_attention.ref import (bf16_errors,
                                                      split_p_bound)
 from repro_torch.kernels.nvcc_build import ptxas_usage
@@ -168,30 +169,32 @@ def test_route_by_dtype_and_head_dim(dtype, D):
     assert D in kernel_sm90.HEAD_DIMS
 
 
-@pytest.mark.parametrize("D", [16, 32])
-def test_negative_scale_raises_before_a_launch(D):
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 240])
+def test_negative_scale_takes_wgmma_on_negated_keys(D):
     """The wgmma kernel folds the scale into one FFMA and takes the max of
-    the raw scores on unmasked tiles, so it needs ``scale >= 0``; at head
-    dims 16 and 32 (which the retired FMA kernel took with any scale) a bf16
-    call with a negative scale raises before any launch. The f32 route takes
-    it."""
+    the raw scores, so it needs ``scale >= 0``; a bf16 call with a negative
+    scale takes the wgmma route at every head dim, with no error, and
+    launches on ``-k`` with ``-scale`` (``wgmma_operands``). That is exact:
+    the plain version and the kernel's arithmetic model on (q, -k, |s|)
+    equal, bit for bit, themselves on (q, k, s)."""
     q = torch.empty((1, 8, 4, D), dtype=torch.bfloat16, device="meta")
     kv = torch.empty((1, 8, 2, D), dtype=torch.bfloat16, device="meta")
     assert checked_route(q, kv, kv) == "wgmma"
-    assert checked_route(q, kv, kv, scale=0.0) == "wgmma"
+    s = -D ** -0.5
+    g = torch.Generator().manual_seed(D)
+    qc = torch.randn((2, 37, 4, D), generator=g).bfloat16()
+    kc, vc = (torch.randn((2, 37, 2, D), generator=g).bfloat16()
+              for _ in range(2))
+    k2, s2 = wgmma_operands(kc, s)
+    assert s2 == -s > 0 and torch.equal(k2, -kc)
+    assert wgmma_operands(kc, -s) == (kc, -s)
+    for fn in (attention_ref, attention_bf16p_model):
+        want = fn(qc, kc, vc, causal=True, scale=s)
+        assert torch.equal(fn(qc, k2, vc, causal=True, scale=s2), want)
     before = flash_attention.launches
-    with pytest.raises(ValueError, match="scale >= 0"):
-        checked_route(q, kv, kv, scale=-D ** -0.5)
-    assert flash_attention.launches == before
-    assert checked_route(q.float(), kv.float(), kv.float(),
-                         scale=-D ** -0.5) == "tf32x3"
     # on CPU tensors the wrapper runs the plain version, which takes it
-    qc, kc = torch.randn((1, 8, 4, D)), torch.randn((1, 8, 2, D))
-    torch.testing.assert_close(
-        flash_attention(qc.bfloat16(), kc.bfloat16(), kc.bfloat16(),
-                        scale=-0.5),
-        attention_ref(qc.bfloat16(), kc.bfloat16(), kc.bfloat16(),
-                      scale=-0.5))
+    assert torch.equal(flash_attention(qc, kc, vc, scale=s),
+                       attention_ref(qc, kc, vc, scale=s))
     assert flash_attention.launches == before
 
 

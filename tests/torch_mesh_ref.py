@@ -27,6 +27,11 @@ time) with four forced host devices in the subprocess's own environment
            the mesh (weights by the ``train`` rules, tokens over "data")
            and the gradient of ``sum(y * w) + 3 aux`` with respect to the
            weights and the tokens; out, ``MoEStats`` and grads.
+``seqpar`` ``{"arch", "loss_chunk", "shapes"}``: the spec the reference's
+           ``annotate(x, "batch", "model", None)`` (the residual's) gives an
+           activation of each shape on the mesh, and the f32 loss of the
+           first train batch with sequence-chunked CE at ``loss_chunk``
+           (``"specs"``, ``"loss"``).
 """
 import os
 import pickle
@@ -68,7 +73,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.data import DataConfig, init_state, make_batch
 from repro.distributed import param_shardings
-from repro.distributed.sharding import set_activation_mesh
+from repro.distributed.sharding import annotate, set_activation_mesh
 from repro.launch.mesh import make_host_mesh
 from repro.launch.steps import make_train_step
 from repro.launch.train import train
@@ -79,7 +84,8 @@ with open(sys.argv[1], "rb") as f:
     d = pickle.load(f)
 steps, B, S = d["shape"]
 mesh = make_host_mesh(2)
-out = {"train": {}, "same_weights": {}, "serve": {}, "moe": {}, "grads": {}}
+out = {"train": {}, "same_weights": {}, "serve": {}, "moe": {}, "grads": {},
+       "seqpar": {}}
 for arch, act, ds in d["train"]:
     base = get_config(arch, smoke=True)
     cfg = dataclasses.replace(base, act_dtype=act, moe_data_shards=ds)
@@ -113,6 +119,23 @@ for arch, act, ds in d["train"]:
     out["train"][arch, act, ds] = losses
 set_activation_mesh(mesh)
 with jax.set_mesh(mesh):
+    sp = d.get("seqpar")
+    if sp:
+        specs = {shape: tuple(jax.jit(lambda x: annotate(
+            x, "batch", "model", None))(jnp.zeros(shape, jnp.float32))
+            .sharding.spec) for shape in sp["shapes"]}
+        out["seqpar"]["specs"] = {             # trailing Nones kept
+            shape: s + (None,) * (len(shape) - len(s))
+            for shape, s in specs.items()}
+        arch = sp["arch"]
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  act_dtype="float32", remat=True,
+                                  loss_chunk=sp["loss_chunk"])
+        params = jax.device_put(d["params"][arch], param_shardings(
+            lm_spec(cfg), mesh, "train"))
+        out["seqpar"]["loss"] = float(jax.jit(
+            lambda p, b: loss_fn(p, cfg, b)[0])(
+            params, d["batches"][arch][0]))
     for arch, ds in d["serve"]:
         cfg = dataclasses.replace(get_config(arch, smoke=True),
                                   act_dtype="float32", moe_data_shards=ds)
@@ -194,16 +217,19 @@ def moe_inputs(arch: str, ds: int, cf: float, seed: int = 0):
     return p, x, rng.normal(size=(4, 32, d)).astype(np.float32)
 
 
-def start(tmp, train=(), serve=(), moe=()):
+def start(tmp, train=(), serve=(), moe=(), seqpar=None):
     """Write the jobs (and the weights, batches and inputs they need) and
     start the reference's subprocess; returns ``(path, process)``."""
     tokens = np.random.default_rng(3).integers(
         0, 256, (SERVE_B, SERVE_S + 1)).astype(np.int32)
-    archs = {a for a, *_ in train} | {a for a, _ in serve}
+    sp_archs = {seqpar["arch"]} if seqpar else set()
+    archs = {a for a, *_ in train} | {a for a, _ in serve} | sp_archs
     cfgs = {a: ref_get_config(a, smoke=True) for a, _ in serve}
     d = {"shape": (STEPS, B, S), "train": list(train), "serve": list(serve),
          "params": {a: weights(a) for a in sorted(archs)},
-         "batches": {a: batches(a) for a, *_ in train},
+         "batches": {a: batches(a) for a in
+                     {a for a, *_ in train} | sp_archs},
+         "seqpar": seqpar,
          "moe": {case: moe_inputs(*case) for case in moe},
          "tokens": tokens,
          "serve_inputs": {a: serve_inputs(c, SERVE_B, SERVE_S + 1)
@@ -236,12 +262,12 @@ def rel(a, b) -> float:
                  / (np.abs(b).max() + 1e-12))
 
 
-def run(tmp, train=(), serve=(), moe=()):
-    """The jobs on the port's 2 x 2 gloo mesh (four spawned ranks) while
-    the reference's subprocess runs them: (every rank's results, the
-    reference's)."""
-    path, proc = start(tmp, train, serve, moe)
-    got = run_ranks(jobs_rank, 4, path, 2)
+def run(tmp, train=(), serve=(), moe=(), seqpar=None, rank_fn=jobs_rank):
+    """The jobs on the port's 2 x 2 gloo mesh (four spawned ranks, each
+    running ``rank_fn(rank, path, 2)``) while the reference's subprocess
+    runs them: (every rank's results, the reference's)."""
+    path, proc = start(tmp, train, serve, moe, seqpar)
+    got = run_ranks(rank_fn, 4, path, 2)
     return got, finish(tmp, proc)
 
 

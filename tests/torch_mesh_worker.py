@@ -299,6 +299,105 @@ def run_jobs(d, mesh, moe_rules="train"):
             "moe": _moe_jobs(d, mesh, moe_rules)}
 
 
+def spec_of(x):
+    """A DTensor's placements as a spec (an entry a dimension: None, a
+    mesh axis name, or a tuple of them in the mesh's order), the
+    reference's ``PartitionSpec`` entries; None for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return None
+    names = x.device_mesh.mesh_dim_names
+    out = []
+    for d in range(x.dim()):
+        axes = tuple(n for n, p in zip(names, x.placements)
+                     if p.is_shard(d))
+        out.append(None if not axes else axes[0] if len(axes) == 1
+                   else axes)
+    return tuple(out)
+
+
+class ResidualProbe:
+    """While active, records the residual at every block's entry
+    (``transformer.block_apply``: mode, local shape, spec) and the input
+    each remat checkpoint of a unit keeps (``transformer.checkpoint``)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.blocks, self.saved = [], []
+        self._mod = transformer
+        self._orig = transformer.block_apply, transformer.checkpoint
+        block_apply, checkpoint = self._orig
+
+        def local(x):
+            return tuple(getattr(x, "_local_tensor", x).shape)
+
+        def probed_block(p, x, cfg, kind, mode, **kw):
+            self.blocks.append((mode, local(x), spec_of(x)))
+            return block_apply(p, x, cfg, kind, mode, **kw)
+
+        def probed_checkpoint(fn, x, *args, **kw):
+            self.saved.append((local(x), spec_of(x)))
+            return checkpoint(fn, x, *args, **kw)
+        transformer.block_apply = probed_block
+        transformer.checkpoint = probed_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.block_apply, self._mod.checkpoint = self._orig
+
+
+def seqpar_rank(rank, path, model_axis):
+    """:func:`run_seqpar` on the jobs of ``tests/torch_mesh_ref.py``'s
+    pickle ``path`` on the port's ``(world // model_axis, model_axis)``
+    mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return run_seqpar(_load(path), make_host_mesh(model_axis))
+
+
+def run_seqpar(d, mesh):
+    """The sequence-parallel residual on ``mesh`` (None: one device), for
+    ``tests/test_torch_mesh_seqpar.py``: with ``d["seqpar"]``'s arch (f32
+    activations, remat, chunked CE at its ``loss_chunk``) the first batch's
+    loss and what each unit's checkpoint keeps (``value_and_grad``); the
+    prompt's prefill and decode (:func:`_prefill_decode`) with the residual
+    at each block's entry, as given and cut by one position (an odd
+    length); on a mesh, the collectives of one FSDP+TP step of each of
+    ``d["seqpar"]["collectives"]``' smoke archs
+    (:func:`step_collectives`)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (batch_shardings, on_mesh,
+                                                  param_shardings)
+    from repro_torch.launch.steps import value_and_grad, whole
+    from repro_torch.models import lm_spec
+    from repro_torch.models.convert import _tensor, params_from_numpy
+    sp = d["seqpar"]
+    arch = sp["arch"]
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              act_dtype="float32", remat=True,
+                              loss_chunk=sp["loss_chunk"])
+    params = _place(params_from_numpy(d["params"][arch], device=CPU),
+                    lambda m: param_shardings(lm_spec(cfg), m, "train"),
+                    mesh)
+    b = {k: _tensor(v, CPU) for k, v in d["batches"][arch][0].items()}
+    b = _place(b, lambda m: batch_shardings(b, m), mesh)
+    with ResidualProbe() as train_probe, on_mesh(mesh):
+        loss = float(whole(value_and_grad(params, cfg, b, device=CPU)[0]))
+    out = {"loss": loss, "saved": train_probe.saved, "serve": {}}
+    scfg = get_config(arch, smoke=True)
+    inputs = d.get("serve_inputs", {}).get(arch, {"tokens": d["tokens"]})
+    n = d["tokens"].shape[1]
+    for name, sl in (("even", slice(0, n)), ("odd", slice(0, n - 1))):
+        with ResidualProbe() as probe:
+            res = _prefill_decode(d["params"][arch], scfg,
+                                  cut_inputs(inputs, sl), mesh, False)
+        out["serve"][name] = dict(res, blocks=probe.blocks)
+    out["collectives"] = {} if mesh is None else {
+        a: step_collectives(a, mesh, *sp["step_shape"])
+        for a in sp["collectives"]}
+    return out
+
+
 def serve_rank(rank, path, model_axis):
     """Tensor-parallel prefill and decode on the reference's weights (f32
     activations), the plain and the kernel path (on the CPU the kernel
@@ -406,3 +505,32 @@ def collective_rank(rank, model_axis):
     ok = bool(torch.allclose(y.full_tensor(), x @ w, rtol=1e-5, atol=1e-5)
               and torch.equal(full.to_local(), w))
     return (mm.per_op, mm.calls), (ag.per_op, ag.calls), ok
+
+
+def step_collectives(arch, mesh, batch, seq):
+    """The collectives of one FSDP+TP train step of ``arch``'s smoke config
+    (its own activations, weights of seed 0, ``make_batch``'s first batch
+    of ``DataConfig(seed=0)``) on ``mesh``, after one warm step, counted by
+    ``CollectiveCounter``: this rank's ``(per_op bytes, calls)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, init_state, make_batch
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  distribute,
+                                                  param_shardings)
+    from repro_torch.launch.roofline import CollectiveCounter
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params, lm_spec
+    from repro_torch.optim import adamw
+    cfg = get_config(arch, smoke=True)
+    specs = lm_spec(cfg)
+    params = distribute(init_params(specs, 0, device=CPU),
+                        param_shardings(specs, mesh, "train"))
+    opt = adamw.init(params)
+    b, _ = make_batch(DataConfig(seed=0), cfg, batch, seq, init_state(),
+                      device=CPU)
+    b = distribute(b, batch_shardings(b, mesh, {"positions3": 1}))
+    step = make_train_step(cfg, adamw.AdamWConfig(), device=CPU, mesh=mesh)
+    params, opt, _ = step(params, opt, b)                   # warm
+    with CollectiveCounter() as counter:
+        step(params, opt, b)
+    return counter.per_op, counter.calls

@@ -3,7 +3,7 @@
 for a host whose torch differs from the one the CPU tests run on (DTensor's
 rules differ by version).
 
-    PYTHONPATH=src:tests python tools/mesh_rehearsal.py [ARCH ...]
+    PYTHONPATH=src:tests python tools/mesh_rehearsal.py [ARCH|seqpar ...]
 
 Runs the CPU tests' jobs (``tests/torch_mesh_worker.run_jobs``) on weights
 and batches the port makes itself, on a (2, 2) mesh of four spawned gloo
@@ -14,8 +14,13 @@ the steps) and a TP prefill of 2 x 16 tokens (embeddings, with their
 M-RoPE streams, for qwen2-vl-2b and musicgen-medium) + 1 decode step; with
 no ARCH, first the MoE layer's output, stats and gradients at
 capacity factor 0.5 (``moe_data_shards`` 1 and 2, ``train`` and ``serve``
-placements). One JSON line a case; a raised error is printed in the line,
-not raised.
+placements), and the sequence-parallel residual
+(``tests/torch_mesh_worker.run_seqpar``: qwen2-0.5b with remat and chunked
+CE, the residual each unit's checkpoint keeps and each block's input in a
+prefill of 16 and of 15 positions and a decode step, every rank's local
+shape and placements; loss and logits against one device; the collective
+bytes of a step). One JSON line a case; a raised error is printed in the
+line, not raised.
 """
 import json
 import os
@@ -29,10 +34,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]
-from torch_mesh_worker import (jobs_rank, run_jobs, run_ranks,  # noqa: E402
+from torch_mesh_worker import (jobs_rank, run_jobs,  # noqa: E402
+                               run_ranks, run_seqpar, seqpar_rank,
                                serve_inputs)
 
-ARCHS = ("deepseek-v2-lite-16b", "arctic-480b", "mamba2-1.3b",
+ARCHS = ("qwen2-0.5b", "deepseek-v2-lite-16b", "arctic-480b", "mamba2-1.3b",
          "recurrentgemma-2b", "gemma3-12b", "qwen2-vl-2b", "musicgen-medium")
 MOE_ARCHS = ("deepseek-v2-lite-16b", "arctic-480b")
 STEPS, B, S = 3, 8, 32
@@ -113,6 +119,40 @@ def compare(got, one):
     return out
 
 
+def seqpar_jobs():
+    """The jobs of the sequence-parallel case: qwen2-0.5b's weights and
+    first batch, a 2 x 17 prompt, chunked CE of 8-position chunks."""
+    d = jobs("qwen2-0.5b")
+    d["seqpar"] = {"arch": "qwen2-0.5b", "loss_chunk": 8,
+                   "collectives": ("qwen2-0.5b", "deepseek-v2-lite-16b"),
+                   "step_shape": (B, S)}
+    return d
+
+
+def seqpar_compare(got, one):
+    """Every rank's residual shapes and placements, rank 0's loss and
+    logits against one device's, the collective bytes a rank."""
+    def blocks(r, name, mode):
+        return sorted({(str(b[1]), str(b[2])) for b in r["serve"][name]
+                       ["blocks"] if b[0] == mode})
+    out = {"loss": (got[0]["loss"], one["loss"]),
+           "loss_rel": abs(got[0]["loss"] - one["loss"]) / abs(one["loss"])}
+    for r, g in enumerate(got):
+        out[f"rank{r}"] = dict(
+            saved=sorted({(str(a), str(b)) for a, b in g["saved"]}),
+            prefill16=blocks(g, "even", "prefill"),
+            prefill15=blocks(g, "odd", "prefill"),
+            decode=blocks(g, "even", "decode"))
+    for name in ("even", "odd"):
+        r, o = got[0]["serve"][name], one["serve"][name]
+        out[f"serve {name}"] = dict(
+            logits_rel=rel(r["logits"], o["logits"]),
+            next_equal=bool(np.array_equal(r["next"], o["next"])))
+    out["collective_bytes"] = {a: sum(c[0].values()) for a, c in
+                               got[0]["collectives"].items()}
+    return out
+
+
 def rehearse(tmp, name, d, moe_rules="train"):
     t0 = time.time()
     line = {"case": name}
@@ -120,8 +160,12 @@ def rehearse(tmp, name, d, moe_rules="train"):
         path = os.path.join(tmp, "in.pkl")
         with open(path, "wb") as f:
             pickle.dump(d, f)
-        got = run_ranks(jobs_rank, 4, path, 2, moe_rules)
-        line.update(compare(got, run_jobs(d, None, moe_rules)))
+        if "seqpar" in d:
+            got = run_ranks(seqpar_rank, 4, path, 2)
+            line.update(seqpar_compare(got, run_seqpar(d, None)))
+        else:
+            got = run_ranks(jobs_rank, 4, path, 2, moe_rules)
+            line.update(compare(got, run_jobs(d, None, moe_rules)))
     except Exception:
         line["error"] = traceback.format_exc()[-2500:]
     line["s"] = time.time() - t0
@@ -137,6 +181,9 @@ if __name__ == "__main__":
                 for rules in ("train", "serve"):
                     rehearse(tmp, f"moe ds={ds} {rules}", jobs(None, ds),
                              rules)
-        for arch in sys.argv[1:] or ARCHS:
+        for arch in sys.argv[1:] or ("seqpar",) + ARCHS:
+            if arch == "seqpar":
+                rehearse(tmp, "seqpar", seqpar_jobs())
+                continue
             for ds in (1, 2) if arch == "deepseek-v2-lite-16b" else (1,):
                 rehearse(tmp, f"{arch} ds={ds}", jobs(arch, ds))

@@ -15,10 +15,11 @@ ticks, first on card 0 alone and then split over the four cards
   train    qwen2-0.5b at full width through ``train(model_axis=2)``
            (parameters and AdamW moments DTensors under the train rules,
            bf16 activations, remat; B = 8, S = 1,024, weights and data of
-           seed 0) for ``--steps`` steps, against the one-card losses; one
-           more step through ``make_train_step`` under ``CollectiveCounter``
-           for the collective bytes a step moves per rank; the roofline's
-           row (``repro_torch.launch.roofline``) beside the step times
+           seed 0) for ``--steps`` steps, against the one-card losses, with
+           rank 0's peak memory; one more step through ``make_train_step``
+           under ``CollectiveCounter`` for the collective bytes a step
+           moves per rank; the roofline's row
+           (``repro_torch.launch.roofline``) beside the step times
   serve    a tensor-parallel prefill (B = 2, S = 4,096, f32 activations:
            the flash kernel's tf32x3 route on each rank's local heads; its
            launches per rank) and 8 decode steps fed the one-card run's
@@ -345,6 +346,9 @@ def main() -> int:
                 if cuda and any(n != cfg.n_layers for n in all_launches):
                     failures.append(("flash launches per rank",
                                      all_launches))
+            del sp             # the MoE phases read their own peak memory
+            if cuda:
+                torch.cuda.empty_cache()
         if "moe_serve" in phases:
             for t in moe_fed:
                 dist.broadcast(t, 0)
@@ -379,9 +383,14 @@ def train_phase(cfg, specs, mesh, args, dev, B, S, rank, world, card_name,
     from repro_torch.models import init_params
     from repro_torch.optim import adamw
     records = []
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     losses = train(ARCH, args.smoke, args.steps, B, S, None,
                    model_axis=MODEL_AXIS, log_every=100, device=dev,
                    on_step=records.append)
+    peak_gib = (torch.cuda.max_memory_allocated() / 2**30
+                if dev.type == "cuda" else 0.0)
     ms = [1e3 * r["seconds"] for r in records]
     params = distribute(init_params(specs, args.seed, device=dev),
                         param_shardings(specs, mesh, "train"))
@@ -413,6 +422,7 @@ def train_phase(cfg, specs, mesh, args, dev, B, S, rank, world, card_name,
          tol=LOSS_TOL, ms=ms, step_ms=step_ms,
          tokens_per_s=B * S / step_ms * 1e3, one_card_step_ms=one_step_ms,
          one_card_tokens_per_s=B * S / one_step_ms * 1e3,
+         peak_memory_gib_rank0=peak_gib,
          collective_bytes_per_rank=counter.per_op,
          collective_calls_per_rank=counter.calls, roofline=rows,
          mfu_measured=rows[f"{world}_cards"]["model_flops"] / world
