@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--horizon TICKS] [--seed SEED]
+    python3 chip_smoke.py [--horizon TICKS] [--seed SEED] [--ref-full]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -83,11 +83,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     analytic-oracle agreement (±15 %) at T=128 (horizon
                     100,000 ticks, cut from the reference test's 400,000),
                     each group of runs as one pack of lanes
-  engine_vs_cpu     per protocol, one config on the card and on the CPU:
-                    every SimState leaf must be equal (horizon 10,000).
-                    engine_invariants' two packs and engine_vs_cpu's CPU
-                    runs go to CHECK_WORKERS processes while this one runs
-                    engine_vs_cpu's card runs
+  engine_vs_ref     the engine held to the JAX package's own answers,
+                    carried here in tests/ref/engine_ref.json (written on a
+                    CPU by tools/ref_fixture.py; a missing fixture, another
+                    format or a configuration other than the fixture's
+                    fails the smoke): the engine phase's seven full-width
+                    final states (at the fixture's 20,000 ticks; at another
+                    --horizon the fixture's seven configs run here again)
+                    and six mid-size runs on the card (T=64, R=4096, txn_len
+                    8, write ratio 0.7, p_abort 0.05, 10,000 ticks,
+                    attribution on), every SimState leaf's dtype, shape and
+                    sha256 equal to the reference's: a line a run with its
+                    iterations and differing leaves (none allowed).
+                    engine_invariants' two packs run on the card in two
+                    worker processes meanwhile
   batch_width       one pack of hotspot_update at full width (txn_len 8,
                     R=1,000,000, T=1024, the six protocols cycled over the
                     lanes, attribution on) through engine._run_batch for 200
@@ -103,7 +112,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     port's run_sweep at the card's default lane width: a
                     line per bucket and per point; tick conservation on
                     every engine lane and TestParserShapes' / TestAria's
-                    orderings at the grid's thread counts
+                    orderings at the grid's thread counts; at the fixture's
+                    horizon every point's record (tests/test_sweep.py's
+                    parity fields) equal to the reference's per-config run
   sweep_vs_single   a mixed grid (six protocols x T 8, 40, 64 padded to 64 x
                     p_abort 0, 0.05, aria at each T, one drain lane; R=4096,
                     horizon 10,000, cut from 20,000 for the time limit)
@@ -162,13 +173,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     slot, never exhausted), 4 boundaries, the six protocols
                     as one pack: each lane equals the engine phase's run,
                     completions equal commits, every response counted
-  adaptive_serving_vs_cpu
-                    small packs on the card and on the CPU, every record
-                    equal: tests/test_adaptive.py's batched-lanes cells
-                    (skew-ramp drift; 15,000 ticks, the test's 30,000 cut)
-                    and an open-load serving pack (Poisson at 0.3, 1 and 3
-                    times capacity, reject and shed, 2 credits a slot so
-                    slots HALT and revive, a queue-rule cell; 10,000 ticks)
+  adaptive_serving_vs_ref
+                    small packs on the card, every record (whole-run metrics,
+                    segment and boundary records, serving results) equal to
+                    the fixture's reference runs: tests/test_adaptive.py's
+                    batched-lanes cells (skew-ramp drift) at that test's
+                    30,000 ticks and an open-load serving pack (Poisson at
+                    0.3, 1 and 3 times capacity, reject and shed, 2 credits
+                    a slot so slots HALT and revive, a queue-rule cell) at
+                    TestAdmission's 20,000 ticks
   fig_grids         fig17's quick grid for its wall (mysql, group, brook2pl
                     x rho 0.01..1.0, T=32, R=4096, 24 boundaries) at 120,000
                     ticks, cut from the figure's quick 240,000 for the time
@@ -247,6 +260,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                     registers and spills of the D = 240 instance (no spill
                     allowed)
 
+``--ref-full`` runs only the card check (gpu) and the fixture's ``uncut``
+points: tests/test_sweep.py's parity and compaction grids at their own
+horizons (25,000, drain 12,000, 60,000, 120,000 ticks) and
+tests/test_lock_engine.py::TestAria's runs at 400,000 ticks, 57 points as
+one compacted run_sweep on the card, every record equal to the reference's
+per-config run; then it exits.
+
 ``--fig15-horizon TICKS`` runs only the card check (gpu) and fig15's
 skew_ramp scenario (benchmarks/fig15_adaptive.py: Zipf txn_len 4, R=8192,
 T=64, 12 segments, three fixed protocols, the queue rule, epsilon-greedy)
@@ -269,6 +289,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -295,9 +316,8 @@ BF16_PATH_MARGIN = 1.25
 FIG17_HORIZON = 120_000
 # processes that run sweep_vs_single's single-lane runs on the card
 SINGLE_LANE_WORKERS = 4
-# processes beside the main one in engine_invariants + engine_vs_cpu (the
-# two packs on the card, the CPU half of engine_vs_cpu) and in trace_vs_cpu
-# (both halves)
+# processes beside the main one in the models and train phases (their CPU
+# halves) and in trace_vs_cpu (both halves)
 CHECK_WORKERS = 4
 # engine_invariants' oracle pack: the protocols with an analytic model
 ORACLE_PROTOCOLS = ("mysql", "o1", "o2", "group", "bamboo")
@@ -370,22 +390,18 @@ def check_accounting(s, T: int) -> None:
     assert wait == int(tb[:, engine.TB_LOCKWAIT].sum()), "ca/lock_wait"
 
 
-def phase_engine(horizon: int) -> tuple[dict, dict]:
+def phase_engine(horizon: int) -> tuple[dict, dict, dict]:
     """The six protocols on SysBench hotspot update, then hotspot_mix under
-    group. Returns the hotspot-update runs' ``SimResult`` by protocol (the
-    governed, serving and trace phases are held to them) and their ms per
-    iteration."""
-    from repro_torch.core.lock import WorkloadSpec, extract, engine
+    group (:func:`engine_full_configs`). Returns the hotspot-update runs'
+    ``SimResult`` by protocol (the governed, serving and trace phases are
+    held to them), their ms per iteration, and every run's
+    :func:`engine_summary` by name (engine_vs_ref holds them to the
+    reference)."""
+    from repro_torch.core.lock import extract, engine
     T, R = 1024, 1_000_000
-    hot = WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
-    mix = WorkloadSpec(kind="hotspot_mix", txn_len=8, n_rows=R,
-                       zipf_s=0.7)
-    runs = [(p, hot) for p in PROTOCOLS] + [("group", mix)]
-    out, ms = {}, {}
-    for proto, wl in runs:
-        cfg = engine.EngineConfig(
-            protocol=engine.protocol_params(proto), costs=engine.CostModel(),
-            workload=wl, n_threads=T, horizon=horizon, attrib=True)
+    out, ms, summaries = {}, {}, {}
+    for name, cfg in engine_full_configs(horizon).items():
+        kind, proto = name.split("/")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = engine.run_sim(cfg, device="cuda")
@@ -393,15 +409,304 @@ def phase_engine(horizon: int) -> tuple[dict, dict]:
         wall = time.perf_counter() - t0
         check_accounting(s, T)
         r = extract(proto, T, s)
-        assert r.commits > 0 and np.isfinite(r.tps), (proto, wl.kind)
-        row = dict(protocol=proto, kind=wl.kind, threads=T, rows=R,
+        assert r.commits > 0 and np.isfinite(r.tps), name
+        summaries[name] = engine_summary(s)
+        row = dict(protocol=proto, kind=kind, threads=T, rows=R,
                    horizon=horizon, iters=r.iters, commits=r.commits,
                    tps=r.tps, wall_s=wall, ms_per_iter=1e3 * wall / r.iters)
         emit("engine", **row)
-        if wl is hot:
+        if kind == "hotspot_update":
             out[proto] = r
             ms[proto] = row["ms_per_iter"]
-    return out, ms
+    return out, ms, summaries
+
+
+# ---------------------------------------------------------------------------
+# the reference fixture: the JAX package's own answers on the configurations
+# below, computed on a CPU by tools/ref_fixture.py (which passes these
+# configuration functions the reference's packages) and committed; the
+# card's runs are held to them bit for bit
+# ---------------------------------------------------------------------------
+
+REF_FIXTURE = ROOT / "tests" / "ref" / "engine_ref.json"
+REF_FORMAT = 1
+# the engine phase's and the sweep phase's default horizons, at which the
+# fixture holds their runs
+REF_ENGINE_HORIZON = 20_000
+FIG8_HORIZON = 120_000
+# tests/test_adaptive.py's HORIZON, and the admission cases' horizon in
+# tests/test_serving.py (TestAdmission)
+GOVERNED_HORIZON = 30_000
+SERVED_HORIZON = 20_000
+
+
+def port_api() -> SimpleNamespace:
+    """The port's packages, as the configuration functions take them."""
+    import repro_torch.adaptive
+    import repro_torch.core.lock
+    import repro_torch.serving
+    import repro_torch.sweep
+    return SimpleNamespace(lock=repro_torch.core.lock,
+                           sweep=repro_torch.sweep,
+                           adaptive=repro_torch.adaptive,
+                           serving=repro_torch.serving)
+
+
+def engine_full_configs(horizon: int, api=None) -> dict:
+    """phase_engine's seven runs at full width, by ``"<kind>/<protocol>"``:
+    SysBench hotspot update (txn_len 8, R=1,000,000, T=1024, attribution
+    on) under the six protocols, then hotspot_mix (Zipf 0.7) under
+    group."""
+    lk = (api or port_api()).lock
+    R = 1_000_000
+    hot = lk.WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=R)
+    mix = lk.WorkloadSpec(kind="hotspot_mix", txn_len=8, n_rows=R,
+                          zipf_s=0.7)
+    return {f"{wl.kind}/{p}": lk.EngineConfig(
+        protocol=lk.protocol_params(p), costs=lk.CostModel(), workload=wl,
+        n_threads=1024, horizon=horizon, attrib=True)
+        for p, wl in [(p, hot) for p in PROTOCOLS] + [("group", mix)]}
+
+
+def engine_mid_configs(api=None) -> dict:
+    """engine_vs_ref's mid-size runs, by protocol: T=64, R=4,096, txn_len
+    8, write ratio 0.7, p_abort 0.05, 10,000 ticks, attribution on."""
+    lk = (api or port_api()).lock
+    wl = lk.WorkloadSpec(kind="hotspot_update", txn_len=8, n_rows=4096,
+                         write_ratio=0.7)
+    return {p: lk.EngineConfig(
+        protocol=lk.protocol_params(p), costs=lk.CostModel(), workload=wl,
+        n_threads=64, horizon=10_000, p_abort=0.05, attrib=True)
+        for p in PROTOCOLS}
+
+
+def ref_full_points(api=None) -> list:
+    """The points of tests/test_sweep.py's parity and compaction grids at
+    their own horizons (25,000; drain 12,000; mixed density 60,000;
+    adaptive budget 120,000), and tests/test_lock_engine.py::TestAria's runs
+    at its sizes and 400,000 ticks; each name prefixed by its case."""
+    a = api or port_api()
+    lk, sw = a.lock, a.sweep
+    rep = dataclasses.replace
+    hot = lk.WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=512)
+    zipf = lk.WorkloadSpec(kind="zipf", txn_len=2, n_rows=256, zipf_s=0.9)
+    z512 = rep(zipf, n_rows=512)
+    H = 25_000
+    cases = {
+        "vmapped": sw.grid(["mysql", "group", "bamboo"], hot, [8, 12],
+                           horizon=H, p_abort=[0.0, 0.1],
+                           name_fmt="{protocol}_T{n_threads}_p{p_abort}"),
+        "txn_len": [sw.point("group", zipf, 8, horizon=H, name="zl2"),
+                    sw.point("group", rep(zipf, txn_len=4), 8, horizon=H,
+                             name="zl4")],
+        "max_bucket": [sw.point("mysql", zipf, 8, horizon=H, name="mx2"),
+                       sw.point("mysql", rep(zipf, txn_len=4), 12,
+                                horizon=H, name="mx4")],
+        "aria": sw.grid("aria", hot, [8, 16], horizon=H),
+        "override": [sw.point("group", hot, 16, horizon=H, name="gc_off",
+                              group_commit=False)],
+        "brook2pl": sw.grid(["brook2pl", "mysql"], rep(zipf, n_rows=251),
+                            [8, 12], horizon=H, p_abort=[0.0, 0.1],
+                            name_fmt="{protocol}_T{n_threads}_p{p_abort}"),
+        "partial_pack": sw.grid(["mysql", "group", "o2", "bamboo", "o1"],
+                                hot, 8, horizon=H),
+        "padded": [sw.point("mysql", zipf, 8, horizon=H, name="mz2"),
+                   sw.point("group", rep(zipf, txn_len=4), 12, horizon=H,
+                            name="gz4"),
+                   sw.point("o2", rep(zipf, txn_len=4), 24, horizon=H,
+                            name="oz4")],
+        "drain": sw.grid(["mysql", "group"], hot, [4, 8], horizon=12_000,
+                         drain=True, name_fmt="d_{protocol}_T{n_threads}"),
+        "aria_staggered": sw.zip_grid(
+            "aria", hot, [8, 8, 16], horizon=H,
+            costs=[lk.CostModel(), lk.CostModel(sync_lat=3_000),
+                   lk.CostModel(sync_lat=9_000)],
+            name_fmt="aria_T{n_threads}_s{sync_lat}"),
+        "mixed_density": [
+            sw.point(p, z512, t, horizon=60_000, name=f"{p}_T{t}")
+            for p, t in (("o1", 16), ("mysql", 16), ("o2", 16), ("o2", 32),
+                         ("o2", 64), ("group", 16), ("group", 32),
+                         ("group", 64))],
+        "adaptive_budget": [
+            sw.point(p, z512, 16, horizon=120_000, name=f"{p}_T16")
+            for p in ("o1", "mysql", "o2", "group")],
+        "aria_orderings": [
+            sw.point("aria", hot, 64, horizon=400_000, name="hot_T64"),
+            sw.point("aria", hot, 512, horizon=400_000, name="hot_T512"),
+            sw.point("aria", lk.WorkloadSpec(kind="zipf", zipf_s=0.99,
+                                             txn_len=4, n_rows=8192),
+                     256, horizon=400_000, name="zipf_T256")],
+    }
+    return [rep(p, name=f"{case}/{p.name}")
+            for case, pts in cases.items() for p in pts]
+
+
+def governed_spec(api=None) -> dict:
+    """tests/test_adaptive.py::test_batched_lanes_match_sequential's cells
+    (skew-ramp drift, the queue rule and two fixed policies) and run, at
+    that test's horizon: ``run_governed``'s arguments."""
+    a = api or port_api()
+    lk, ad = a.lock, a.adaptive
+    drift = lk.skew_ramp(lk.WorkloadSpec(kind="zipf", txn_len=2,
+                                         n_rows=256, zipf_s=0.9),
+                         3, lo=0.3, hi=1.1)
+    return dict(cells=[ad.GovernorCell("r", ad.QueueRulePolicy(), drift, 8),
+                       ad.GovernorCell("m", ad.FixedPolicy("mysql"), drift,
+                                       12),
+                       ad.GovernorCell("g", ad.FixedPolicy("group"), drift,
+                                       8)],
+                horizon=GOVERNED_HORIZON, n_segments=3, chunk_size=4)
+
+
+def served_spec(api=None) -> dict:
+    """An open-load serving pack at tests/test_serving.py's admission
+    horizon (TestAdmission's workload and o2 pool, 2 credits a slot, so
+    slots HALT and are revived): Poisson at 0.3, 1 and 3 times the pool's
+    capacity under ``reject`` and ``shed``, plus a queue-rule cell;
+    ``serve``'s arguments."""
+    a = api or port_api()
+    lk, ad, sv = a.lock, a.adaptive, a.serving
+    w = lk.WorkloadSpec(kind="uniform", txn_len=2, n_rows=512,
+                        write_ratio=1.0)
+    T, H = 8, SERVED_HORIZON
+    cap = T / sv.service_ticks(w, lk.CostModel(), "o2")
+    cells = [sv.ServeCell(name=f"{adm}_{f}", workload=w, n_threads=T,
+                          schedule=sv.poisson(f * cap, H, seed=i),
+                          preset="o2", queue_cap=8, admission=adm,
+                          max_outstanding=2)
+             for i, (adm, f) in enumerate(
+                 (adm, f) for adm in ("reject", "shed")
+                 for f in (0.3, 1.0, 3.0))]
+    cells.append(sv.ServeCell(name="rule", workload=w, n_threads=T,
+                              schedule=sv.poisson(cap, H, seed=9),
+                              preset="o2", policy=ad.QueueRulePolicy(),
+                              queue_cap=8, admission="reject",
+                              max_outstanding=2))
+    return dict(cells=cells, seg_ticks=H // 8, chunk_size=8)
+
+
+def engine_summary(s) -> dict:
+    """A final engine state (either package) -> the fixture's record of it:
+    ``iters``, ``commits``, ``now`` and every leaf's digest."""
+    from repro_torch.core.lock.convert import state_digests, state_to_numpy
+    if isinstance(s.g.now, torch.Tensor):
+        s = state_to_numpy(s)
+    return dict(iters=int(s.g.iters), commits=int(s.g.commits),
+                now=int(s.g.now), digests=state_digests(s))
+
+
+def governed_records(res) -> dict:
+    """Every cell's whole-run metrics and segment records."""
+    return {n: dict(result=dataclasses.asdict(res[n]),
+                    segments=res.segments[n]) for n in res.names()}
+
+
+def served_records(res) -> dict:
+    """Every cell's serving result, boundary records and engine metrics."""
+    return {n: dict(serving=dataclasses.asdict(res.serving[n]),
+                    segments=res.segments[n],
+                    result=dataclasses.asdict(res[n])) for n in res.names()}
+
+
+def load_ref() -> dict:
+    """The committed reference fixture; its format must be this script's."""
+    if not REF_FIXTURE.is_file():
+        raise SystemExit(f"chip_smoke: reference fixture {REF_FIXTURE} "
+                         "missing (tools/ref_fixture.py writes it)")
+    ref = json.loads(REF_FIXTURE.read_text())
+    if ref.get("format") != REF_FORMAT:
+        raise SystemExit(f"chip_smoke: reference fixture format "
+                         f"{ref.get('format')} is not {REF_FORMAT}")
+    return ref
+
+
+def same(a, b) -> bool:
+    """Two JSON-able trees equal field for field (floats exactly)."""
+    from repro_torch.core.lock.convert import canonical
+    return canonical(a) == canonical(b)
+
+
+def check_configs(entry: dict, built: dict, what: str) -> None:
+    """The configurations built here are the fixture's, name for name."""
+    from repro_torch.core.lock.convert import config_doc
+    assert sorted(entry) == sorted(built), (what, "names differ")
+    bad = [n for n, obj in built.items()
+           if not same(config_doc(obj), entry[n]["config"])]
+    assert not bad, (what, "configs differ from the fixture's", bad)
+
+
+def differing_leaves(got: dict, want: dict) -> list[str]:
+    """Leaves whose digests (dtype, shape or bytes) differ."""
+    return sorted(k for k in got.keys() | want.keys()
+                  if not same(got.get(k), want.get(k)))
+
+
+def phase_engine_vs_ref(ref: dict, summaries: dict | None) -> None:
+    """The seven full-width runs held to the fixture's ``engine_full``
+    leaf for leaf: phase_engine's final states when it ran at the fixture's
+    horizon (``summaries``), else the fixture's seven configs run here."""
+    from repro_torch.core.lock import engine
+    entry = ref["engine_full"]
+    cfgs = engine_full_configs(entry["horizon"])
+    check_configs(entry["runs"], cfgs, "engine_full")
+    bad = {}
+    for name, cfg in cfgs.items():
+        got = (summaries[name] if summaries is not None else
+               engine_summary(engine.run_sim(cfg, device="cuda")))
+        want = entry["runs"][name]
+        diff = differing_leaves(got["digests"], want["digests"])
+        emit("engine_vs_ref", entry="engine_full", run=name,
+             horizon=entry["horizon"], iters=got["iters"],
+             ref_iters=want["iters"], commits=got["commits"],
+             ref_commits=want["commits"], differing_leaves=diff,
+             rerun=summaries is None)
+        if diff or any(got[k] != want[k] for k in ("iters", "commits",
+                                                    "now")):
+            bad[name] = diff
+    assert not bad, ("full-width runs vs the reference", bad)
+
+
+def phase_engine_mid_vs_ref(ref: dict) -> None:
+    """engine_mid_configs' six runs on the card held to the fixture's
+    ``engine_mid`` leaf for leaf."""
+    from repro_torch.core.lock import run_sim
+    entry = ref["engine_mid"]["runs"]
+    cfgs = engine_mid_configs()
+    check_configs(entry, cfgs, "engine_mid")
+    bad = {}
+    for proto, cfg in cfgs.items():
+        got = engine_summary(run_sim(cfg, device="cuda"))
+        diff = differing_leaves(got["digests"], entry[proto]["digests"])
+        emit("engine_vs_ref", entry="engine_mid", run=proto,
+             iters=got["iters"], ref_iters=entry[proto]["iters"],
+             differing_leaves=diff)
+        if diff:
+            bad[proto] = diff
+    assert not bad, ("mid-size runs vs the reference", bad)
+
+
+def phase_ref_full(ref: dict) -> dict:
+    """``--ref-full``: the fixture's ``uncut`` points (the CPU tests' cut
+    grids at the reference tests' own horizons, Aria included) as one
+    compacted ``run_sweep`` on the card, every record equal."""
+    from repro_torch.core.lock.convert import sim_record
+    from repro_torch.sweep import run_sweep
+    entry = ref["uncut"]["points"]
+    pts = ref_full_points()
+    check_configs(entry, {p.name: p for p in pts}, "uncut")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sweep(pts, device="cuda")
+    wall = time.perf_counter() - t0
+    diff = [p.name for p in pts
+            if not same(sim_record(res[p.name]), entry[p.name]["record"])]
+    row = dict(points=len(pts), wall_s=wall, lane_iters=res.lane_iters,
+               repacks=res.n_repacks,
+               max_iters=max(res[p.name].iters for p in pts),
+               differing=diff)
+    emit("ref_full", **row)
+    assert not diff, ("uncut points vs the reference", diff)
+    return row
 
 
 def kernel_bench_inputs(V=50_000, D=512, N=262_144, s=1.2):
@@ -492,36 +797,6 @@ def phase_engine_invariants(packs: dict) -> None:
         assert ok, ("oracle", proto, got, want)
 
 
-def _engine_vs_cpu_run(proto: str, device: str):
-    """engine_vs_cpu's run of one protocol, its final state as numpy."""
-    from repro_torch.core.lock import (WorkloadSpec, CostModel,
-                                       protocol_params, run_sim)
-    from repro_torch.core.lock.convert import state_to_numpy
-    from repro_torch.core.lock.engine import EngineConfig
-    cfg = EngineConfig(
-        protocol=protocol_params(proto), costs=CostModel(),
-        workload=WorkloadSpec(kind="hotspot_update", txn_len=8,
-                              n_rows=4096, write_ratio=0.7),
-        n_threads=64, horizon=10_000, p_abort=0.05, attrib=True)
-    return state_to_numpy(run_sim(cfg, device=device))
-
-
-def phase_engine_vs_cpu(cpu: dict) -> None:
-    """Per protocol, one config on the card here against its CPU run
-    (``cpu``: futures by protocol, run in worker processes)."""
-    for proto in PROTOCOLS:
-        a = _engine_vs_cpu_run(proto, "cuda")
-        b = cpu[proto].result()
-        diff = [f"{part}.{f}"
-                for part in ("th", "rows", "g")
-                for f, x, y in zip(getattr(a, part)._fields,
-                                   getattr(a, part), getattr(b, part))
-                if not (x.dtype == y.dtype and np.array_equal(x, y))]
-        emit("engine_vs_cpu", protocol=proto, iters=int(a.g.iters),
-             differing_leaves=diff, f32_tolerance=0.0)
-        assert not diff, (proto, diff)
-
-
 def worker_pool(n: int):
     """``n`` spawned worker processes (:func:`_worker_init`)."""
     import multiprocessing
@@ -580,25 +855,32 @@ def phase_batch_width(widths=(1, 2, 4, 8, 16), T=1024, R=1_000_000,
     return out
 
 
-def fig8_points(horizon: int, R: int = 1_000_000, threads=(1, 64, 256, 1024)):
+def fig8_points(horizon: int, R: int = 1_000_000, threads=(1, 64, 256, 1024),
+                api=None):
     """``benchmarks/fig08_scalability.py``'s quick grid on a SysBench
     ``--table-size=1000000`` table."""
-    from repro_torch.core.lock import WorkloadSpec
-    from repro_torch.sweep import grid
-    hot = WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=R)
-    return grid(["mysql", "o1", "o2", "group", "bamboo", "aria"], hot,
-                list(threads), horizon=horizon,
-                name_fmt="fig8_{protocol}_T{n_threads}")
+    a = api or port_api()
+    hot = a.lock.WorkloadSpec(kind="hotspot_update", txn_len=1, n_rows=R)
+    return a.sweep.grid(["mysql", "o1", "o2", "group", "bamboo", "aria"],
+                        hot, list(threads), horizon=horizon,
+                        name_fmt="fig8_{protocol}_T{n_threads}")
 
 
-def phase_sweep(horizon: int, R: int = 1_000_000,
+def phase_sweep(ref: dict, horizon: int, R: int = 1_000_000,
                 threads=(1, 64, 256, 1024)) -> dict:
     """Figure 8's grid through the port's ``run_sweep`` at the card's
-    default lane width."""
+    default lane width; at the fixture's horizon, every point's record held
+    to the fixture's ``fig8`` (the reference's per-config run)."""
     from repro_torch.core.lock import TICKS_PER_SEC
+    from repro_torch.core.lock.convert import sim_record
     from repro_torch.sweep import run_sweep
     from repro_torch.sweep.runner import CUDA_CHUNK, _bucket_key
     pts = fig8_points(horizon, R, threads)
+    entry = ref["fig8"]
+    held = horizon == entry["horizon"] and (R, tuple(threads)) == (
+        1_000_000, (1, 64, 256, 1024))
+    if held:
+        check_configs(entry["points"], {p.name: p for p in pts}, "fig8")
     res = run_sweep(pts, device="cuda")
     for b in res.buckets:
         emit("sweep", bucket=f"{b.family}/{b.kind}/R{b.n_rows}",
@@ -648,6 +930,13 @@ def phase_sweep(horizon: int, R: int = 1_000_000,
     }
     emit("sweep", check="ratios", **ratios)
     assert all(ratios.values()), ratios
+    want = entry["points"]
+    diff = ([p.name for p in pts
+             if not same(sim_record(res[p.name]), want[p.name]["record"])]
+            if held else None)
+    emit("sweep", check="reference", points=len(pts), held=held,
+         fixture_horizon=entry["horizon"], differing=diff)
+    assert not diff, ("Figure 8's records vs the reference", diff)
     row = dict(points=len(pts), horizon=horizon, rows=R, lane_width=CUDA_CHUNK,
                wall_s=res.wall_s, lane_iters=res.lane_iters,
                repacks=res.n_repacks, n_compiles=res.n_compiles)
@@ -1217,76 +1506,46 @@ def phase_serving(single: dict, horizon: int, n_bounds: int = 4,
     return row
 
 
-def phase_adaptive_serving_vs_cpu(horizon: int = 15_000,
-                                  serve_horizon: int = 10_000) -> None:
-    """Small packs on the card and on the CPU, every record equal: the
-    governed cells of tests/test_adaptive.py's batched-lanes case (skew-ramp
-    drift, the queue rule and two fixed policies) and an open-load serving
-    pack (Poisson at 0.3, 1 and 3 times the pool's capacity with ``reject``
-    and ``shed`` admission, 2 credits a slot, so slots HALT and are
-    revived, plus a queue-rule cell). Horizons 15,000 (the test's 30,000)
-    and 10,000 ticks, for the time limit."""
-    from repro_torch.adaptive import (FixedPolicy, GovernorCell,
-                                      QueueRulePolicy, run_governed)
-    from repro_torch.core.lock import CostModel, WorkloadSpec, skew_ramp
-    from repro_torch.serving import ServeCell, poisson, serve, service_ticks
-    drift = skew_ramp(WorkloadSpec(kind="zipf", txn_len=2, n_rows=256,
-                                   zipf_s=0.9), 3, lo=0.3, hi=1.1)
-
-    def gov_cells():
-        return [GovernorCell("r", QueueRulePolicy(), drift, 8),
-                GovernorCell("m", FixedPolicy("mysql"), drift, 12),
-                GovernorCell("g", FixedPolicy("group"), drift, 8)]
-
-    w = WorkloadSpec(kind="uniform", txn_len=2, n_rows=512, write_ratio=1.0)
-    T = 8
-    cap = T / service_ticks(w, CostModel(), "o2")
-
-    def srv_cells():
-        cells = [ServeCell(name=f"{adm}_{f}", workload=w, n_threads=T,
-                           schedule=poisson(f * cap, serve_horizon,
-                                            seed=i),
-                           preset="o2", queue_cap=8, admission=adm,
-                           max_outstanding=2)
-                 for i, (adm, f) in enumerate(
-                     (a, f) for a in ("reject", "shed")
-                     for f in (0.3, 1.0, 3.0))]
-        return cells + [ServeCell(
-            name="rule", workload=w, n_threads=T,
-            schedule=poisson(cap, serve_horizon, seed=9), preset="o2",
-            policy=QueueRulePolicy(), queue_cap=8, admission="reject",
-            max_outstanding=2)]
-
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        gov = run_governed(gov_cells(), horizon=horizon, n_segments=3,
-                           chunk_size=4, device=dev)
-        srv = serve(srv_cells(), seg_ticks=serve_horizon // 8,
-                    chunk_size=8, device=dev)
-        runs[dev] = (gov, srv, time.perf_counter() - t0)
-    (g_a, s_a, wall_a), (g_b, s_b, wall_b) = runs["cuda"], runs["cpu"]
+def phase_adaptive_serving_vs_ref(ref: dict) -> None:
+    """Small packs on the card, every record held to the fixture's
+    ``governed_served`` (the reference's runs): :func:`governed_spec` (the
+    batched-lanes case of tests/test_adaptive.py at its 30,000 ticks) and
+    :func:`served_spec` (an open-load pack at TestAdmission's 20,000
+    ticks, slots revived)."""
+    from repro_torch.adaptive import run_governed
+    from repro_torch.core.lock.convert import config_doc
+    from repro_torch.serving import serve
+    entry = ref["governed_served"]
+    gspec, sspec = governed_spec(), served_spec()
+    assert same(config_doc(gspec), entry["governed"]["config"]), \
+        "governed: config differs from the fixture's"
+    assert same(config_doc(sspec), entry["served"]["config"]), \
+        "served: config differs from the fixture's"
+    t0 = time.perf_counter()
+    gov = run_governed(**gspec, device="cuda")
+    g_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    srv = serve(**sspec, device="cuda")
+    s_wall = time.perf_counter() - t0
     diff = []
-    for n in g_a.names():
-        if (dataclasses.asdict(g_a[n]) != dataclasses.asdict(g_b[n])
-                or g_a.segments[n] != g_b.segments[n]):
-            diff.append(f"governed:{n}")
-    for n in s_a.names():
-        if (dataclasses.asdict(s_a.serving[n])
-                != dataclasses.asdict(s_b.serving[n])
-                or s_a.segments[n] != s_b.segments[n]
-                or dataclasses.asdict(s_a[n]) != dataclasses.asdict(s_b[n])):
-            diff.append(f"serving:{n}")
-    revived = {n: s_a.serving[n].completed for n in s_a.names()}
-    emit("adaptive_serving_vs_cpu", governed_cells=g_a.names(),
-         serving_cells=s_a.names(), card_wall_s=wall_a, cpu_wall_s=wall_b,
-         completed=revived, rejected={n: s_a.serving[n].rejected
-                                      for n in s_a.names()},
-         shed={n: s_a.serving[n].shed for n in s_a.names()},
-         rule_timeline=[r["preset"] for r in s_a.segments["rule"]],
+    for kind, got in (("governed", governed_records(gov)),
+                      ("served", served_records(srv))):
+        want = entry[kind]["records"]
+        assert sorted(got) == sorted(want), (kind, sorted(got))
+        diff += [f"{kind}:{n}:{part}" for n in got for part in got[n]
+                 if not same(got[n][part], want[n][part])]
+    revived = {n: srv.serving[n].completed for n in srv.names()}
+    emit("adaptive_serving_vs_ref", governed_cells=gov.names(),
+         governed_horizon=gspec["horizon"], governed_wall_s=g_wall,
+         serving_cells=srv.names(), served_horizon=SERVED_HORIZON,
+         served_wall_s=s_wall, completed=revived,
+         rejected={n: srv.serving[n].rejected for n in srv.names()},
+         shed={n: srv.serving[n].shed for n in srv.names()},
+         rule_timeline=[r["preset"] for r in srv.segments["rule"]],
          differing=diff)
     assert not diff, diff
     # more completions than a slot's credits can carry: slots were revived
+    T = sspec["cells"][0].n_threads
     assert all(c > 2 * T for c in revived.values()), revived
 
 
@@ -2905,17 +3164,21 @@ def phase_flash(cfg, params, seed: int, launches: int, by_route: dict,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--horizon", type=int, default=20_000,
+    ap.add_argument("--horizon", type=int, default=REF_ENGINE_HORIZON,
                     help="engine-phase horizon in ticks (0.1 us each); cut "
                          "from 200,000 so the eager engine (~10 ms per "
                          "iteration on an H100 host) and the sweep phases "
                          "fit the time limit")
-    ap.add_argument("--sweep-horizon", type=int, default=120_000,
+    ap.add_argument("--sweep-horizon", type=int, default=FIG8_HORIZON,
                     help="horizon of the sweep phase's Figure 8 grid, in "
                          "ticks (cut from fig08's quick 200,000)")
     ap.add_argument("--fig15-horizon", type=int, default=0,
                     help="run only fig15's skew_ramp scenario at this "
                          "horizon (ticks) on the card, then exit")
+    ap.add_argument("--ref-full", action="store_true",
+                    help="run only the reference fixture's uncut points "
+                         "(the CPU tests' grids at the reference tests' "
+                         "horizons) on the card, check them, then exit")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the model's weights and inputs")
     args = ap.parse_args()
@@ -2955,13 +3218,18 @@ def main() -> int:
         phase_fig15(args.fig15_horizon)
         emit("done", wall_s=time.perf_counter() - t_start)
         return 0
+    ref = load_ref()
+    if args.ref_full:
+        phase_ref_full(ref)
+        emit("done", wall_s=time.perf_counter() - t_start)
+        return 0
     ptxas = phase_build([kernel, kernel_sm90, kernel_tf32])
     lap("gpu+build")
 
     # the main path: engine at full width, then the group-locking apply;
     # kernel launch counts are zeroed right before and read right after
     zero_counts()
-    single, engine_ms = phase_engine(args.horizon)
+    single, engine_ms, summaries = phase_engine(args.horizon)
     lap("engine")
     inputs = kernel_bench_inputs()
     phase_group_apply(inputs)
@@ -3024,15 +3292,16 @@ def main() -> int:
         "the train path takes the plain attention path"
     lap("train")
 
-    # engine_invariants' two packs and engine_vs_cpu's CPU half run in
-    # worker processes while this process runs engine_vs_cpu's card half
-    with worker_pool(CHECK_WORKERS) as pool:
+    # the engine held to the reference's answers; engine_invariants' two
+    # packs run on the card in worker processes meanwhile
+    with worker_pool(2) as pool:
         packs = {c: pool.submit(_invariant_pack, c)
                  for c in ("drain", "oracle")}
-        cpu = {p: pool.submit(_engine_vs_cpu_run, p, "cpu")
-               for p in PROTOCOLS}
-        phase_engine_vs_cpu(cpu)
-        lap("engine_vs_cpu")
+        phase_engine_vs_ref(ref, summaries if args.horizon
+                            == ref["engine_full"]["horizon"] else None)
+        lap("engine_vs_ref")
+        phase_engine_mid_vs_ref(ref)
+        lap("engine_mid_vs_ref")
         phase_engine_invariants(packs)
         lap("engine_invariants")
 
@@ -3041,7 +3310,7 @@ def main() -> int:
     zero_counts()
     phase_batch_width()
     lap("batch_width")
-    phase_sweep(args.sweep_horizon)
+    phase_sweep(ref, args.sweep_horizon)
     lap("sweep")
     sweep_pts, sweep_res = phase_sweep_vs_single()
     lap("sweep_vs_single")
@@ -3080,8 +3349,8 @@ def main() -> int:
     zero_counts()
     phase_serving(single, args.horizon)
     lap("serving")
-    phase_adaptive_serving_vs_cpu()
-    lap("adaptive_serving_vs_cpu")
+    phase_adaptive_serving_vs_ref(ref)
+    lap("adaptive_serving_vs_ref")
     phase_fig_grids(FIG17_HORIZON)
     lap("fig_grids")
     emit("serving_path", launches={

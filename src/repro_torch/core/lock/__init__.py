@@ -6,8 +6,8 @@ from .workload import (WorkloadSpec, DynWorkload, dyn_workload, zipf_cdf,
                        zipf_cdf_table, DriftSchedule, DRIFT_KINDS,
                        stationary, hot_migration, skew_ramp, flash_crowd)
 from .engine import (EngineConfig, StaticShape, DynParams, split_config,
-                     SimState, SegSnapshot, init_state, init_state_dyn,
-                     run_sim, run_segment, simulate, stack_lanes, take_lane,
+                     SimState, SegSnapshot, StepEvents, init_state,
+                     init_state_dyn, run_sim, run_segment, simulate, stack_lanes, take_lane,
                      N_TB, TB_NAMES, TB_BRANCHES, N_QHIST,
                      START, WAIT, EXEC, CWAIT, COMMIT, RBACK, RBWAIT,
                      BACKOFF, ARRIVE, HALT)
@@ -24,7 +24,7 @@ __all__ = [
     "zipf_cdf_table", "DriftSchedule", "DRIFT_KINDS", "stationary",
     "hot_migration", "skew_ramp", "flash_crowd",
     "EngineConfig", "StaticShape", "DynParams", "split_config",
-    "SimState", "SegSnapshot", "init_state", "init_state_dyn",
+    "SimState", "SegSnapshot", "StepEvents", "init_state", "init_state_dyn",
     "run_sim", "run_segment", "simulate", "stack_lanes", "take_lane",
     "N_TB", "TB_NAMES", "TB_BRANCHES", "N_QHIST",
     "START", "WAIT", "EXEC", "CWAIT", "COMMIT", "RBACK", "RBWAIT",

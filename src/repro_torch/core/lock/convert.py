@@ -13,8 +13,19 @@ in either package. Packs
 of G lanes (a leading axis on every leaf, as the reference's ``vmap``
 entries take them) cross the same way. The objects passed in only need
 attributes with the right names, so nothing here imports the reference.
+
+Where no JAX runs (the card host), the reference's answers travel as
+numbers instead: :func:`state_digests` (a sha256 a leaf),
+:func:`sim_record` (a result's parity fields) and :func:`config_doc` (a
+configuration of either package as a JSON tree), compared through
+:func:`canonical`. ``tools/ref_fixture.py`` writes them from the reference
+and ``chip_smoke.py`` holds the card to them.
 """
 from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
 
 import numpy as np
 import torch
@@ -59,6 +70,91 @@ def state_to_numpy(s):
     """Port state (engine or Aria, one config or a pack) -> the same
     NamedTuples holding numpy arrays."""
     return _leaves_to_numpy(s)
+
+
+def state_digests(state_np, lane: int | None = None) -> dict:
+    """Each leaf of a numpy state -> ``[dtype, shape, sha256]`` of its
+    C-ordered bytes, keyed ``"th.<f>"``, ``"rows.<f>"``, ``"g.<f>"`` for an
+    engine state and ``"<f>"`` for an Aria state. Either package's state
+    goes in (the reference's after ``np.asarray`` on every leaf); for a pack,
+    ``lane`` picks one lane. Two states have equal digests exactly when
+    every leaf has the same dtype, shape and values."""
+    out = {}
+
+    def walk(obj, prefix):
+        for f, x in zip(obj._fields, obj):
+            if isinstance(x, tuple) and hasattr(x, "_fields"):
+                walk(x, f"{prefix}{f}.")
+                continue
+            a = np.ascontiguousarray(np.asarray(x) if lane is None
+                                     else np.asarray(x)[lane])
+            out[prefix + f] = [a.dtype.str, list(a.shape),
+                               hashlib.sha256(a.tobytes()).hexdigest()]
+
+    walk(state_np, "")
+    return out
+
+
+# SimResult fields a record carries (tests/test_sweep.py's parity bar)
+INT_FIELDS = ("commits", "user_aborts", "forced_aborts", "lock_ops",
+              "iters", "dd_ticks")
+FLOAT_FIELDS = ("tps", "mean_latency_us", "p95_latency_us", "abort_rate",
+                "lock_wait_frac", "cpu_util")
+
+
+def sim_record(r) -> dict:
+    """A ``SimResult`` of either package -> its parity fields."""
+    return {f: getattr(r, f) for f in INT_FIELDS + FLOAT_FIELDS}
+
+
+def _plain(x):
+    """A numpy scalar or array inside a record as a host value or list (for
+    ``json``)."""
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, np.generic):
+        return x.item()
+    raise TypeError(f"not JSON: {type(x).__name__}")
+
+
+def canonical(x) -> str:
+    """One JSON text per value: records of either package, and the copy
+    read back from a JSON file, compare equal exactly when their fields do
+    (floats are written with ``repr``, so they round-trip; NaN equals NaN;
+    keys are sorted as the strings JSON makes of them)."""
+    return json.dumps(json.loads(json.dumps(x, default=_plain)),
+                      sort_keys=True)
+
+
+def config_doc(obj):
+    """A configuration object of either package (dataclasses, NamedTuples,
+    policies, arrival schedules) -> a JSON tree: each object its type name
+    and fields, each array its dtype, shape and sha256. The port's and the
+    reference's objects built alike give equal trees."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {"type": type(obj).__name__,
+                **{f.name: config_doc(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj)}}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {"type": type(obj).__name__,
+                **{f: config_doc(v) for f, v in zip(obj._fields, obj)}}
+    if isinstance(obj, (list, tuple)):
+        return [config_doc(v) for v in obj]
+    if isinstance(obj, dict):
+        return {str(k): config_doc(v) for k, v in obj.items()}
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, np.ndarray):
+        a = np.ascontiguousarray(obj)
+        return {"dtype": a.dtype.str, "shape": list(a.shape),
+                "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    if isinstance(obj, np.generic):
+        return obj.item()
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    return {"type": type(obj).__name__,
+            **{k: config_doc(v) for k, v in sorted(vars(obj).items())
+               if not k.startswith("_")}}
 
 
 def _host(v):

@@ -315,6 +315,15 @@ def gen_txn_dyn(kind: str, n_rows: int, L: int, dw: DynWorkload,
     return tuple(x[0] for x in out)
 
 
+def gen_txn(spec: WorkloadSpec, thread_ids: torch.Tensor,
+            txn_ctr: torch.Tensor):
+    """Static-spec convenience wrapper around :func:`gen_txn_dyn`, its
+    tables on the counters' device."""
+    return gen_txn_dyn(spec.kind, spec.n_rows, spec.txn_len,
+                       dyn_workload(spec, txn_ctr.device), thread_ids,
+                       txn_ctr)
+
+
 def will_abort_dyn(seed, p_abort, thread_ids: torch.Tensor,
                    txn_ctr: torch.Tensor) -> torch.Tensor:
     """Deterministic per-transaction injected-abort decision (Fig. 10).
@@ -324,6 +333,16 @@ def will_abort_dyn(seed, p_abort, thread_ids: torch.Tensor,
     zero = torch.zeros_like(thread_ids)
     h = _hash3(thread_ids * 1_000_003 + txn_ctr, zero, zero, seed * 7 + 5)
     return _uniform01(h) < p_abort
+
+
+def will_abort(spec: WorkloadSpec, p_abort: float,
+               thread_ids: torch.Tensor, txn_ctr: torch.Tensor
+               ) -> torch.Tensor:
+    """Static-spec convenience wrapper around :func:`will_abort_dyn`; no
+    abort at all where ``p_abort <= 0``."""
+    if p_abort <= 0.0:
+        return torch.zeros_like(thread_ids, dtype=torch.bool)
+    return will_abort_dyn(int(spec.seed), _f32(p_abort), thread_ids, txn_ctr)
 
 
 # ---------------------------------------------------------------------------

@@ -69,48 +69,61 @@ def lm_block_specs(cfg):
 
 # --------------------------------------------------------------- caches
 
-def block_init_cache(cfg, kind, batch: int, seq_len: int, dtype, dev):
-    """One layer's zeroed decode cache. Attention caches take ``dtype``;
-    the RG-LRU and SSD states are always f32, as in the reference."""
+def block_cache_shape(cfg, kind, batch: int, seq_len: int, dtype):
+    """One layer's decode cache as meta tensors (shapes and dtypes, no
+    storage). Attention caches take ``dtype``; the RG-LRU and SSD states
+    are always f32, as in the reference."""
     mixer = kind[0]
-    f32 = torch.float32
+
+    def meta(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
     if mixer in ("global", "local"):
         sh = (batch, gqa_cache_len(cfg, mixer, seq_len), cfg.n_kv_heads,
               cfg.hd)
-        return KVCache(k=torch.zeros(sh, dtype=dtype, device=dev),
-                       v=torch.zeros(sh, dtype=dtype, device=dev))
+        return KVCache(k=meta(sh), v=meta(sh))
     if mixer == "mla":
-        return MLACache(
-            ckv=torch.zeros((batch, seq_len, cfg.kv_lora_rank), dtype=dtype,
-                            device=dev),
-            krope=torch.zeros((batch, seq_len, cfg.qk_rope_dim), dtype=dtype,
-                              device=dev))
+        return MLACache(ckv=meta((batch, seq_len, cfg.kv_lora_rank)),
+                        krope=meta((batch, seq_len, cfg.qk_rope_dim)))
+    f32 = torch.float32
     if mixer == "rglru":
         w = cfg.lru_width
-        return RGLRUState(
-            h=torch.zeros((batch, w), dtype=f32, device=dev),
-            conv=torch.zeros((batch, cfg.conv_width - 1, w), dtype=f32,
-                             device=dev))
+        return RGLRUState(h=meta((batch, w), f32),
+                          conv=meta((batch, cfg.conv_width - 1, w), f32))
     if mixer == "ssd":
         return SSDState(
-            h=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                           cfg.ssm_state), dtype=f32, device=dev),
-            conv=torch.zeros((batch, cfg.conv_width - 1,
-                              cfg.d_inner + 2 * cfg.ssm_state), dtype=f32,
-                             device=dev))
+            h=meta((batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                   f32),
+            conv=meta((batch, cfg.conv_width - 1,
+                       cfg.d_inner + 2 * cfg.ssm_state), f32))
     raise ValueError(f"unknown mixer {mixer!r}")
+
+
+def lm_cache_shapes(cfg, batch: int, seq_len: int, dtype=torch.bfloat16):
+    """The whole model's cache as meta tensors, in the reference's layout:
+    ``{g: {u: cache}}``, each leaf with a leading axis of the group's
+    repeats."""
+    def stack(c, n):
+        return type(c)(*(torch.empty((n,) + x.shape, dtype=x.dtype,
+                                     device="meta") for x in c))
+
+    return {f"g{gi}": {f"u{i}": stack(block_cache_shape(
+        cfg, kind, batch, seq_len, dtype), reps)
+        for i, kind in enumerate(unit)}
+        for gi, (unit, reps) in enumerate(cfg.layout)}
 
 
 def lm_init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                   device=None):
     """Zeroed decode caches for the whole model on ``device`` (default
-    CUDA): ``{g: {u: [cache per repeat]}}``."""
+    CUDA), from :func:`lm_cache_shapes`: ``{g: {u: [cache per repeat]}}``."""
     dev = resolve(device)
-    return {f"g{gi}": {f"u{i}": [block_init_cache(cfg, kind, batch, seq_len,
-                                                  dtype, dev)
-                                 for _ in range(reps)]
-                       for i, kind in enumerate(unit)}
-            for gi, (unit, reps) in enumerate(cfg.layout)}
+    return {g: {u: [type(c)(*(torch.zeros(x.shape[1:], dtype=x.dtype,
+                                          device=dev) for x in c))
+                    for _ in range(c[0].shape[0])]
+                for u, c in units.items()}
+            for g, units in lm_cache_shapes(cfg, batch, seq_len,
+                                            dtype).items()}
 
 
 # --------------------------------------------------------------- apply

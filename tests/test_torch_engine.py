@@ -75,3 +75,16 @@ def test_simulate_bit_equal(proto, kind, p_abort):
     _assert_states_equal(want, got)
     _assert_accounting(got, cfg.n_threads)
     assert int(got.g.commits) > 0
+
+
+def test_step_events_exported_as_the_reference():
+    """``StepEvents`` is public in ``repro_torch.core.lock`` as in the
+    reference's package, with the reference's fields; every name the
+    reference's package exports, the port's does too."""
+    import repro.core.lock as ref_lock
+    import repro_torch.core.lock as lock
+    assert lock.StepEvents is engine.StepEvents
+    assert "StepEvents" in lock.__all__
+    assert lock.StepEvents._fields == ref_lock.StepEvents._fields
+    assert set(ref_lock.__all__) <= set(lock.__all__), \
+        set(ref_lock.__all__) - set(lock.__all__)

@@ -390,3 +390,59 @@ def test_ssd_segsum_matches_reference():
     fin = np.isfinite(want)
     np.testing.assert_allclose(got[fin], want[fin], rtol=TOL, atol=TOL)
     assert np.isneginf(got[..., 0, 1]).all() and (got[..., 2, 2] == 0).all()
+
+
+# --------------------------------------------------------------- caches
+
+def _cache_structure(tree):
+    """{g: {u: (type name, [(shape, dtype name), ...])}} of a cache tree
+    (meta tensors or ShapeDtypeStructs)."""
+    return {g: {u: (type(c).__name__,
+                    [(tuple(x.shape), str(x.dtype).replace("torch.", ""))
+                     for x in c])
+                for u, c in units.items()}
+            for g, units in tree.items()}
+
+
+def _all_archs():
+    from repro_torch.configs import ARCHS
+    return ARCHS
+
+
+@pytest.mark.parametrize("smoke", [True, False])
+@pytest.mark.parametrize("arch", _all_archs())
+def test_lm_cache_shapes_equal_the_reference(arch, smoke):
+    """``lm_cache_shapes`` (meta tensors) against the reference's
+    ShapeDtypeStructs for all ten configs, smoke and full width: the same
+    keys, cache types, shapes and dtypes, each leaf stacked over its
+    group's repeats; ``block_cache_shape`` is one repeat of it, and
+    ``lm_init_cache`` allocates exactly those shapes."""
+    from repro.models import lm_cache_shapes as ref_shapes
+    from repro.models.transformer import block_cache_shape as ref_block
+    from repro_torch.models import lm_cache_shapes, lm_init_cache
+    from repro_torch.models.transformer import block_cache_shape
+    cfg, cfg_ref = get_config(arch, smoke=smoke), ref_get_config(arch,
+                                                                 smoke=smoke)
+    B, S = 3, 40
+    for dt, ref_dt in ((torch.bfloat16, jnp.bfloat16),
+                       (torch.float32, jnp.float32)):
+        got = lm_cache_shapes(cfg, B, S, dt)
+        assert _cache_structure(got) == _cache_structure(
+            ref_shapes(cfg_ref, B, S, ref_dt)), (arch, dt)
+        assert all(x.is_meta for units in got.values()
+                   for c in units.values() for x in c)
+        for kind in {k for unit, _ in cfg.layout for k in unit}:
+            one = block_cache_shape(cfg, kind, B, S, dt)
+            want = ref_block(cfg_ref, kind, B, S, ref_dt)
+            assert _cache_structure({"g": {"u": one}}) == \
+                _cache_structure({"g": {"u": want}}), (arch, kind)
+    if smoke:
+        caches = lm_init_cache(cfg, B, S, dtype=torch.float32, device="cpu")
+        want = lm_cache_shapes(cfg, B, S, torch.float32)
+        for g, units in want.items():
+            for u, c in units.items():
+                assert len(caches[g][u]) == c[0].shape[0]
+                for layer in caches[g][u]:
+                    assert [(tuple(y.shape), y.dtype) for y in layer] == [
+                        (tuple(x.shape[1:]), x.dtype) for x in c]
+                    assert all(not y.any() for y in layer)

@@ -78,6 +78,43 @@ def test_will_abort_bit_equal(seed):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_gen_txn_static_wrapper_bit_equal(kind):
+    """``gen_txn(spec, ...)``, the static-spec wrapper, against the
+    reference's: the spec's own ``txn_len`` and tables."""
+    rspec, pspec = _specs(kind, hot_base=11)
+    tids = np.arange(T, dtype=np.int32)
+    ctr = np.random.default_rng(KINDS.index(kind) + 50).integers(
+        0, 2**31 - 1, T).astype(np.int32)
+    want = ref_wl.gen_txn(rspec, jnp.asarray(tids), jnp.asarray(ctr))
+    got = wl.gen_txn(pspec, torch.from_numpy(tids), torch.from_numpy(ctr))
+    for name, a, b in zip(("keys", "iswr", "dup", "lastu", "nops"),
+                          want, got):
+        a = np.array(a)
+        assert b.dtype == torch.from_numpy(a).dtype, name
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+
+
+@pytest.mark.parametrize("p", [-0.5, 0.0, 1e-9, 0.05, 0.5, 1.0])
+def test_will_abort_static_wrapper_bit_equal(p):
+    """``will_abort(spec, p, ...)`` against the reference's, all false at
+    ``p <= 0`` (where no hash is drawn)."""
+    rspec, pspec = _specs("zipf", seed=9)
+    tids = np.arange(T, dtype=np.int32)
+    ctr = np.random.default_rng(77).integers(0, 2**31 - 1,
+                                             T).astype(np.int32)
+    want = np.asarray(ref_wl.will_abort(rspec, p, jnp.asarray(tids),
+                                        jnp.asarray(ctr)))
+    got = wl.will_abort(pspec, p, torch.from_numpy(tids),
+                        torch.from_numpy(ctr))
+    assert got.dtype == torch.bool and want.dtype == np.bool_
+    np.testing.assert_array_equal(got.numpy(), want)
+    if p <= 0:
+        assert not got.any()
+    if p == 0.5:
+        assert 0 < int(got.sum()) < T
+
+
 def _u32_edges():
     top = np.arange(0xFFFFFF00, 0x100000000, dtype=np.uint64)
     mid = np.arange(2**24 - 300, 2**24 + 300, dtype=np.uint64)
